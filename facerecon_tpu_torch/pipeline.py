@@ -1,0 +1,63 @@
+"""Reconstruction pipeline (twin of facerecon_tpu/pipeline.py, inference).
+
+images -> fused ResNet -> coefficients -> geometry -> SH-9 radiance ->
+fused rasterize+shade kernel -> composite over the input image. PyTorch
+runs eagerly, so there is no jit: `Pipeline.reconstruct` is the
+counterpart of the reference's `make_reconstruct_fn(inference=True)`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from facerecon_tpu_torch import resolve_device
+from facerecon_tpu_torch.config import FaceReconConfig
+from facerecon_tpu_torch.models.fused import (FusedResNetRegressor,
+                                              build_fused_model)
+from facerecon_tpu_torch.ops.geometry import DeviceBFM, device_bfm
+from facerecon_tpu_torch.ops.render import render_coeffs
+from facerecon_tpu_torch.utils.bfm import BFMAssets
+from facerecon_tpu_torch.utils.coeffs import split_coeff
+
+
+@dataclasses.dataclass
+class Pipeline:
+    cfg: FaceReconConfig
+    bfm: DeviceBFM
+    model: FusedResNetRegressor
+    device: torch.device
+
+    @torch.no_grad()
+    def reconstruct(self, images, background: Optional[torch.Tensor] = None):
+        """images (B,H,W,3) in [0,1] (tensor or array) -> (coeff vector
+        (B, n_coeff), Coeffs, RenderOut) on the pipeline's device."""
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        coeff_vec = self.model(images)
+        coeffs = split_coeff(coeff_vec, self.cfg)
+        out = render_coeffs(coeffs, self.bfm, self.cfg,
+                            background=images if background is None
+                            else background, inference=True)
+        return coeff_vec, coeffs, out
+
+
+def make_pipeline(cfg: FaceReconConfig, assets: BFMAssets, device="cuda",
+                  dtype=torch.bfloat16, depth: int = 50,
+                  seed: int = 0) -> Pipeline:
+    """Upload the assets and build the fused regressor with random weights
+    drawn from `seed` (load trained ones with
+    `pipe.model.load_state_dict(jax_params.fused_state_dict(...))`).
+
+    Turns TF32 off for the process: geometry must stay true float32, and
+    cuDNN would otherwise run float32 convolutions in TF32."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_fused_model(cfg, depth, dtype).reset_parameters_(
+        torch.Generator().manual_seed(seed))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    return Pipeline(cfg=cfg, bfm=device_bfm(assets, dev), model=model,
+                    device=dev)

@@ -1,0 +1,136 @@
+"""The port's fused rasterize+shade (facerecon_tpu_torch/ops/rasterize.py)
+against the JAX reference and the numpy oracle, at tiny_config().
+
+On the CPU the wrapper runs the kernel's plain version. It must give
+EXACTLY the tri_id of the reference's Pallas kernel (run in interpret
+mode, as tests/test_rasterize_pallas.py runs it) and of the oracle,
+including under a shuffled face order and a 45-degree roll. color and
+bary agree with the reference to 1e-4: the reference rounds them to
+its >=16-bit hi/lo bf16 output pack, the port writes float32.
+
+The kernel itself runs only on a card; tests/test_torch_cuda.py holds it
+against this plain version there.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from facerecon_tpu import oracle
+from facerecon_tpu.ops import geometry as G
+from facerecon_tpu.ops import rasterize_pallas as RP
+from facerecon_tpu.ops import sh as SH
+from facerecon_tpu.ops.render import _pack_render_records
+from facerecon_tpu.utils.coeffs import split_coeff
+
+from facerecon_tpu_torch.ops import _build
+from facerecon_tpu_torch.ops import geometry as TG
+from facerecon_tpu_torch.ops import rasterize as TR
+from facerecon_tpu_torch.ops import render as TRe
+from facerecon_tpu_torch.ops import sh as TSH
+from facerecon_tpu_torch.utils.coeffs import split_coeff as t_split_coeff
+
+from conftest import make_coeff
+
+torch.set_num_threads(2)
+
+
+def _port_geom(cfg, assets, seed, batch=1, roll=None):
+    coeff = make_coeff(cfg, np.random.default_rng(seed), batch=batch)
+    if roll is not None:
+        coeff[:, cfg.coeff_split[2] + 2] = roll
+    tbfm = TG.device_bfm(assets, "cpu")
+    c = t_split_coeff(torch.from_numpy(coeff), cfg)
+    return coeff, tbfm, c, TG.coeffs_to_geometry(c, tbfm, cfg)
+
+
+def _port_render(cfg, geom, c, faces, rows, rid, reference=False):
+    """Records in the given row order, then rasterize_shaded (or its
+    plain version) on the device of the inputs."""
+    h = w = cfg.image_size
+    rad = TSH.illuminate(geom.texture, geom.normals, c.gamma)
+    rec = TRe.pack_render_records(geom.verts_ndc, rad, rows, h, w,
+                                  TR.padded_rows(rows.shape[0]))
+    fn = TR.rasterize_shaded_reference if reference else TR.rasterize_shaded
+    return fn(rec, geom.verts_ndc, faces, height=h, width=w,
+              tile_h=cfg.tile_h, n_cols=cfg.raster_cols, row_faces=rows,
+              row_id=rid)
+
+
+def test_plain_version_matches_pallas_shaded(cfg, assets):
+    """Same 24-field record (the reference's _pack_render_records) and the
+    same ndc vertices into both rasterize_shaded implementations."""
+    coeff = make_coeff(cfg, np.random.default_rng(7), batch=2)
+    bfm = G.device_bfm(assets)
+    c = split_coeff(jnp.asarray(coeff), cfg)
+    geom = G.coeffs_to_geometry(c, bfm, cfg)
+    h = w = cfg.image_size
+    rad = SH.illuminate(geom.texture, geom.normals, c.gamma)
+    rows, rid = bfm.raster_rows, bfm.raster_row_id
+    rec = _pack_render_records(geom.verts_ndc, rad, rows, h, w,
+                               RP.padded_rows(rows.shape[0]))
+    tid, color, bary = RP.rasterize_shaded(
+        rec, geom.verts_ndc, bfm.faces, height=h, width=w,
+        tile_h=cfg.tile_h, n_cols=cfg.raster_cols, row_faces=rows,
+        row_id=rid)
+    tbfm = TG.device_bfm(assets, "cpu")
+    ttid, tcolor, tbary = TR.rasterize_shaded_reference(
+        torch.from_numpy(np.array(rec)),
+        torch.from_numpy(np.array(geom.verts_ndc)), tbfm.faces, height=h,
+        width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+        row_faces=tbfm.raster_rows, row_id=tbfm.raster_row_id)
+    tid = np.asarray(tid)
+    assert (tid >= 0).mean() > 0.1
+    np.testing.assert_array_equal(ttid.numpy(), tid)
+    np.testing.assert_allclose(tcolor.numpy(), np.asarray(color), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(tbary.numpy(), np.asarray(bary), rtol=0,
+                               atol=1e-4)
+    cov = tid >= 0
+    np.testing.assert_allclose(tbary.numpy().sum(-1)[cov], 1.0, atol=1e-5)
+    assert np.all(tbary.numpy()[~cov] == 0) and np.all(
+        tcolor.numpy()[~cov] == 0)
+
+
+@pytest.mark.parametrize("case", ["raster_rows", "shuffled", "roll45"])
+def test_tri_id_matches_oracle(cfg, assets, case):
+    coeff, tbfm, c, geom = _port_geom(
+        cfg, assets, 11, roll=np.pi / 4 if case == "roll45" else None)
+    if case == "shuffled":
+        perm = np.random.default_rng(3).permutation(assets.n_faces)
+        rows = torch.from_numpy(assets.faces[perm]).to(torch.int64)
+        rid = torch.from_numpy(perm)
+    else:
+        rows, rid = tbfm.raster_rows, tbfm.raster_row_id
+    tid, _, _ = _port_render(cfg, geom, c, tbfm.faces, rows, rid)
+    h = w = cfg.image_size
+    tid_o, _, _ = oracle.rasterize(geom.verts_ndc[0].numpy(), assets.faces,
+                                   h, w)
+    assert (tid_o >= 0).mean() > 0.1
+    np.testing.assert_array_equal(tid[0].numpy(), tid_o)
+
+
+def test_wrapper_runs_plain_version_on_cpu(cfg, assets):
+    """On CPU tensors the wrapper is the plain version (bit for bit) and
+    launches nothing; it rejects inputs the kernel does not take."""
+    _, tbfm, c, geom = _port_geom(cfg, assets, 12, batch=2)
+    rows, rid = tbfm.raster_rows, tbfm.raster_row_id
+    _build.reset_launches()
+    got = _port_render(cfg, geom, c, tbfm.faces, rows, rid)
+    ref = _port_render(cfg, geom, c, tbfm.faces, rows, rid, reference=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert _build.LAUNCHES["raster_shade"] == 0
+    h = w = cfg.image_size
+    win = TR.band_windows(geom.verts_ndc, rows, rid, h, w, cfg.tile_h,
+                          cfg.raster_cols)
+    rec = torch.zeros((2, 24, win.setup.shape[2]))
+    kw = dict(height=h, width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+              n_faces=assets.n_faces)
+    with pytest.raises(ValueError):
+        TR.shade_windows(win, rec.double(), **kw)
+    with pytest.raises(ValueError):
+        TR.shade_windows(win, rec[:, :17], **kw)
+    with pytest.raises(ValueError):
+        TR.shade_windows(win._replace(cmask=win.cmask[:, ::2]), rec, **kw)
