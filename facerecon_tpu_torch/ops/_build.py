@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, loaded with ctypes (no PyTorch
 headers, so a build takes seconds). Libraries go into `_build/` beside
-the package (listed in .gitignore), named by a hash of the source and the
-flags, so a checkout builds what it needs on its first call and reuses it
-afterwards. A failed build raises: there is no fallback.
+the package (listed in .gitignore), named by a hash of the source, every
+header in `csrc/` and the flags, so a checkout builds what it needs on
+its first call and reuses it afterwards, and an edited header rebuilds
+every kernel. A failed build raises: there is no fallback.
 
 `LAUNCHES` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went
@@ -22,7 +23,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-KERNELS = ("raster_shade",)
+KERNELS = ("raster_shade", "raster_select", "select_grad")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,10 +55,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:

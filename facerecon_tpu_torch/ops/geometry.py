@@ -147,19 +147,79 @@ def to_ndc(verts, cfg: FaceReconConfig) -> torch.Tensor:
     return torch.stack([x_ndc, y_ndc, zp], dim=-1)
 
 
+# --- fixed-adjacency gathers with gather-based adjoints ---
+
+def _gather_sum(p, adj):
+    """sum_k p_pad[..., adj[:, k]] in the order k = 0..deg-1, where p_pad
+    is p with one zero appended (the pad index of `adj`)."""
+    p_pad = torch.cat([p, p.new_zeros((*p.shape[:-1], 1))], dim=-1)
+    total = p_pad[..., adj[:, 0]]
+    for k in range(1, adj.shape[1]):
+        total = total + p_pad[..., adj[:, k]]
+    return total
+
+
+class _TakeCornerPlanes(torch.autograd.Function):
+    """Per-vertex planes (B, N) -> corner planes (B, len(idx)) by a gather
+    along the last axis. Backward: each vertex sums the cotangents of its
+    corners through the fixed `corner_adj` table ((N, deg_max) corner
+    positions, padded with len(idx)) — a gather, not the scatter-add
+    (index_put_ with accumulate, atomics on the card) that autograd
+    derives from p[..., idx]."""
+
+    @staticmethod
+    def forward(ctx, idx, corner_adj, *planes):
+        ctx.save_for_backward(corner_adj)
+        return tuple(p[..., idx] for p in planes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (corner_adj,) = ctx.saved_tensors
+        return (None, None, *(_gather_sum(g, corner_adj) for g in grads))
+
+
+def take_corner_planes(planes, idx, corner_adj):
+    """Tuple of (B, N) planes -> tuple of (B, len(idx)) corner planes
+    (twin of the reference's take_corner_planes custom VJP)."""
+    return _TakeCornerPlanes.apply(idx, corner_adj, *planes)
+
+
+class _AccumulateFnPlanes(torch.autograd.Function):
+    """Face-normal planes (B, F) -> vertex sums (B, N) over each vertex's
+    adjacent faces (`adj` (N, deg_max) vertex -> face, padded with F),
+    summed in the order k = 0..deg-1. Backward: d fn[f] = sum_c
+    g[faces[f, c]], three gathers (twin of the reference's
+    _accumulate_fn_planes)."""
+
+    @staticmethod
+    def forward(ctx, adj, faces, *fn_planes):
+        ctx.save_for_backward(faces)
+        return tuple(_gather_sum(p, adj) for p in fn_planes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (faces,) = ctx.saved_tensors
+        return (None, None, *(g[..., faces[:, 0]] + g[..., faces[:, 1]]
+                              + g[..., faces[:, 2]] for g in grads))
+
+
 # --- vertex normals (area-weighted) ---
 
-def compute_norm(verts, faces, adj) -> torch.Tensor:
+def compute_norm(verts, faces, adj, corner_adj_cm) -> torch.Tensor:
     """Per-vertex normals: area-weighted face normals summed per vertex,
     in the reference's PLANE form (per-component corner gathers).
 
-    The accumulation gathers each vertex's adjacent face normals from
-    `adj` ((N, deg_max) vertex->face table, padded with F) and sums them
-    in the order k = 0..deg-1, as the reference does. No index_add_: on
-    CUDA its atomics sum in an order that changes between runs."""
+    `corner_adj_cm` ((N, deg_max) corner-major corner positions, padded
+    with 3F) gives the corner gather its gather-based adjoint; `adj`
+    ((N, deg_max) vertex->face table, padded with F) drives the
+    accumulation, which sums each vertex's adjacent face normals in the
+    order k = 0..deg-1, as the reference does. No index_add_ or scatter
+    in either direction: on CUDA their atomics sum in an order that
+    changes between runs."""
     f = faces.shape[0]
     idx_cm = faces.T.reshape(-1)                        # corner-major
-    cx, cy, cz = (verts[..., k][..., idx_cm] for k in range(3))
+    cx, cy, cz = take_corner_planes(
+        tuple(verts[..., k] for k in range(3)), idx_cm, corner_adj_cm)
 
     def corner(p, c):
         return p[..., c * f:(c + 1) * f]
@@ -171,15 +231,7 @@ def compute_norm(verts, faces, adj) -> torch.Tensor:
     by = corner(cy, 2) - corner(cy, 0)
     bz = corner(cz, 2) - corner(cz, 0)
     fn = (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
-
-    def accumulate(p):
-        p_pad = torch.cat([p, p.new_zeros((*p.shape[:-1], 1))], dim=-1)
-        total = p_pad[..., adj[:, 0]]
-        for k in range(1, adj.shape[1]):
-            total = total + p_pad[..., adj[:, k]]
-        return total
-
-    vx, vy, vz = (accumulate(p) for p in fn)
+    vx, vy, vz = _AccumulateFnPlanes.apply(adj, faces, *fn)
     norm = torch.sqrt(vx * vx + vy * vy + vz * vz)[..., None]
     return torch.stack([vx, vy, vz], dim=-1) / torch.clamp(norm, min=1e-8)
 
@@ -209,7 +261,8 @@ def coeffs_to_geometry(c: Coeffs, bfm: DeviceBFM,
     rot = compute_rotation(c.angles)
     verts = rigid_transform(shape, rot, c.trans)
     # normals rotate with the mesh: compute in canonical frame, rotate
-    normals = compute_norm(shape, bfm.faces, bfm.vertex_face_adj)
+    normals = compute_norm(shape, bfm.faces, bfm.vertex_face_adj,
+                           bfm.vertex_corner_adj_cm)
     normals = normals @ rot.transpose(-1, -2)
     return Geometry(
         shape=shape,

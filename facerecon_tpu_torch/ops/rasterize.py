@@ -1,5 +1,4 @@
-"""Fused z-buffer rasterizer + shading (twin of the inference path of
-facerecon_tpu/ops/rasterize_pallas.py).
+"""Fused z-buffer rasterizers (twin of facerecon_tpu/ops/rasterize_pallas.py).
 
 Setup and records follow the asset's static RASTER ROW ORDER (faces sorted
 by mean-shape (y-bin, x), each bin padded to a 128-row chunk), so every
@@ -9,10 +8,18 @@ set in its exact chunk mask (ops/binning.py). The z-test compares
 (depth, original face id) lexicographically, so the lowest-face-id tie
 rule holds under any row order.
 
-`band_windows` builds the kernel's inputs. `shade_windows` is the kernel's
-wrapper: on CUDA tensors it launches `csrc/raster_shade.cu`, on CPU
-tensors it runs `shade_windows_reference`, the plain PyTorch version of
-the same function. `rasterize_shaded` chains the two.
+`band_windows` builds the kernels' inputs. Three kernels, each with a
+wrapper that launches it on CUDA tensors, runs its plain PyTorch version
+(`*_reference`, the same function) on CPU tensors, and counts launches in
+`_build.LAUNCHES`:
+  - `shade_windows` -> `csrc/raster_shade.cu` (K1, inference: z-test +
+    in-kernel shading); `rasterize_shaded` chains binning and K1;
+  - `select_windows` -> `csrc/raster_select.cu` (K2, training forward:
+    z-test + the winner's record fields and raster row);
+  - `select_grad` -> `csrc/select_grad.cu` (K3, K2's adjoint: per raster
+    row, the sum of its pixels' cotangent).
+`RasterizeSelect` is the autograd Function over K2 and K3, and
+`rasterize_select` chains binning and it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ _BGRP = 8               # row-count rounding shared with the reference
 _ROW_PAD = 16           # setup record fields padded 12 -> 16
 _FIELDS = 24            # render-attribute record width
 _REF_ROWS = 8192        # rows per step of the plain version's window walk
+_SEL = 20               # record fields the select returns per pixel
+_GRAD = 17              # differentiable record fields
 
 
 def padded_rows(n_faces: int) -> int:
@@ -79,30 +88,69 @@ def band_windows(verts_ndc, row_faces, row_id, height: int, width: int,
                    cmask=st.chunk_mask.reshape(bsz, -1), setup=setup)
 
 
-def _check_inputs(win: Windows, records, height, width, tile_h, n_cols):
-    bsz, _, rows = win.setup.shape
-    n_bands = (height + tile_h - 1) // tile_h
-    dev = records.device
-    want = {
-        "setup": (win.setup, torch.float32, (bsz, _ROW_PAD, rows)),
-        "records": (records, torch.float32, (bsz, _FIELDS, rows)),
-        "blo": (win.blo, torch.int32, (bsz, n_bands)),
-        "bn": (win.bn, torch.int32, (bsz, n_bands)),
-        "cmask": (win.cmask, torch.int32, (bsz, n_bands * n_cols * _MWORDS)),
-    }
+def _check(dev, want) -> None:
+    """Raise unless every tensor in `want` (name -> (tensor, dtype, shape))
+    lies on `dev` with that dtype and shape and is contiguous."""
     for name, (t, dtype, shape) in want.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, records on {dev}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_inputs(win: Windows, records, height, width, tile_h, n_cols):
+    bsz, _, rows = win.setup.shape
+    n_bands = (height + tile_h - 1) // tile_h
+    _check(records.device, {
+        "setup": (win.setup, torch.float32, (bsz, _ROW_PAD, rows)),
+        "records": (records, torch.float32, (bsz, _FIELDS, rows)),
+        "blo": (win.blo, torch.int32, (bsz, n_bands)),
+        "bn": (win.bn, torch.int32, (bsz, n_bands)),
+        "cmask": (win.cmask, torch.int32, (bsz, n_bands * n_cols * _MWORDS)),
+    })
+
+
+def _on_card(dev: torch.device) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); raises on any other device."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _launch(name: str, dev: torch.device, ptrs, ints) -> None:
+    """Launch kernel `name` (built at first use) on the current stream of
+    `dev`: its C entry takes the pointers, then the ints, then the
+    stream, and returns the launch's CUDA error code."""
+    fn = getattr(_build.load(name), name)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _build.LAUNCHES[name] += 1
+
+
+def _raster_ints(win: Windows, height, width, tile_h, n_cols, n_faces):
+    """The raster kernels' int arguments, after the block-size check."""
+    col_w = col_width(width, n_cols)
+    if tile_h * col_w > 1024:
+        raise ValueError(f"tile_h * col_width = {tile_h * col_w} pixels "
+                         "exceeds one block of 1024 threads")
+    bsz, _, rows = win.setup.shape
+    return (bsz, height, width, tile_h, n_cols, col_w,
+            (height + tile_h - 1) // tile_h, rows, n_faces)
+
+
 def shade_windows(win: Windows, records, *, height: int, width: int,
                   tile_h: int, n_cols: int, n_faces: int):
-    """Rasterize + shade from prepared windows: the kernel's wrapper.
+    """Rasterize + shade from prepared windows: K1's wrapper.
 
     records (B, 24, rows) f32 render attributes in raster row order
     (render.pack_render_records). Returns (tri_id (B,H,W) int32 original
@@ -110,52 +158,62 @@ def shade_windows(win: Windows, records, *, height: int, width: int,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     _check_inputs(win, records, height, width, tile_h, n_cols)
-    if records.device.type == "cpu":
+    if not _on_card(records.device):
         return shade_windows_reference(win, records, height=height,
                                        width=width, tile_h=tile_h,
                                        n_cols=n_cols, n_faces=n_faces)
-    if records.device.type != "cuda":
-        raise ValueError(f"unsupported device {records.device}")
-    bsz, _, rows = win.setup.shape
-    dev = records.device
+    bsz, dev = records.shape[0], records.device
     tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
     color = torch.empty((bsz, height, width, 3), dtype=torch.float32,
                         device=dev)
     bary = torch.empty_like(color)
-    if bsz == 0:
-        return tri_id, color, bary
-    col_w = col_width(width, n_cols)
-    if tile_h * col_w > 1024:
-        raise ValueError(f"tile_h * col_width = {tile_h * col_w} pixels "
-                         "exceeds one block of 1024 threads")
-    fn = _build.load("raster_shade").raster_shade
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(win.setup.data_ptr(), records.data_ptr(),
-                 win.blo.data_ptr(), win.bn.data_ptr(), win.cmask.data_ptr(),
-                 tri_id.data_ptr(), color.data_ptr(), bary.data_ptr(),
-                 bsz, height, width, tile_h, n_cols, col_w,
-                 (height + tile_h - 1) // tile_h, rows, n_faces, stream)
-    if err != 0:
-        raise RuntimeError(f"raster_shade launch failed: CUDA error {err}")
-    _build.LAUNCHES["raster_shade"] += 1
+    ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
+    if bsz:
+        _launch("raster_shade", dev, (win.setup, records, win.blo, win.bn,
+                                      win.cmask, tri_id, color, bary), ints)
     return tri_id, color, bary
 
 
-def shade_windows_reference(win: Windows, records, *, height: int,
-                            width: int, tile_h: int, n_cols: int,
-                            n_faces: int):
-    """Plain PyTorch version of the kernel, on the same inputs.
+def select_windows(win: Windows, records, *, height: int, width: int,
+                   tile_h: int, n_cols: int, n_faces: int):
+    """Rasterize + select the winner's record from prepared windows: K2's
+    wrapper.
+
+    records (B, 24, rows) f32 in raster row order (render._stack24).
+    Returns (tri_id (B,H,W) int32 original face ids and row (B,H,W)
+    int32 winner raster rows, both -1 on background; sel (B,20,H,W) f32,
+    fields 0..19 of the winner's record, zero on background). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    _check_inputs(win, records, height, width, tile_h, n_cols)
+    if not _on_card(records.device):
+        return select_windows_reference(win, records, height=height,
+                                        width=width, tile_h=tile_h,
+                                        n_cols=n_cols, n_faces=n_faces)
+    bsz, dev = records.shape[0], records.device
+    tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
+    row = torch.empty_like(tri_id)
+    sel = torch.empty((bsz, _SEL, height, width), dtype=torch.float32,
+                      device=dev)
+    ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
+    if bsz:
+        _launch("raster_select", dev, (win.setup, records, win.blo, win.bn,
+                                       win.cmask, tri_id, row, sel), ints)
+    return tri_id, row, sel
+
+
+def _band_winners(win: Windows, height: int, width: int, tile_h: int,
+                  n_cols: int, n_faces: int):
+    """The plain z-test shared by the kernels' plain versions. Yields
+    (b, t, hit, ids, best_row, px, py) for every band with a window:
+    per pixel of the padded band (row-major), whether a face covers it,
+    the winner's original face id and raster row, and the pixel center.
 
     Walks each band's whole union window [blo, blo + bn) in row blocks,
     without the column masks: they prune only chunks that cover none of
     the column's pixels, so the winner is the same. Every float op is the
-    kernel's, in the kernel's order."""
+    kernels' (raster_common.cuh), in their order."""
     setup = win.setup
-    bsz, _, rows = setup.shape
+    bsz = setup.shape[0]
     dev = setup.device
     tile_w = col_width(width, n_cols) * n_cols
     n_bands = (height + tile_h - 1) // tile_h
@@ -163,10 +221,6 @@ def shade_windows_reference(win: Windows, records, *, height: int,
     pix = torch.arange(band_px, device=dev)
     px = (pix % tile_w).to(torch.float32) + 0.5
     ty = (pix // tile_w).to(torch.float32)
-    tri = torch.full((bsz, n_bands, band_px), -1, dtype=torch.int32,
-                     device=dev)
-    color = torch.zeros((bsz, n_bands, band_px, 3), device=dev)
-    bary = torch.zeros_like(color)
     blo = win.blo.tolist()
     bn = win.bn.tolist()
     inf = torch.tensor(float("inf"), device=dev)
@@ -201,25 +255,148 @@ def shade_windows_reference(win: Windows, records, *, height: int,
                 best_row = torch.where(better, row, best_row)
             ids = best_id.to(torch.int64)
             hit = (best_z < 3e37) & (ids >= 0) & (ids < n_faces)
-            rec = records[b, :17, best_row]                # (17, band_px)
-            qx = px - rec[15]
-            qy = py - rec[16]
-            w0 = rec[9] * qx + rec[10] * qy + rec[11]
-            w1 = rec[12] * qx + rec[13] * qy + rec[14]
-            w2 = 1.0 - w0 - w1
-            rgb = torch.stack([w0 * rec[c] + w1 * rec[c + 3]
-                               + w2 * rec[c + 6] for c in range(3)], -1)
-            hit3 = hit[:, None]
-            tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
-            color[b, t] = torch.where(hit3, rgb, 0.0)
-            bary[b, t] = torch.where(hit3, torch.stack([w0, w1, w2], -1),
-                                     0.0)
+            yield b, t, hit, ids, best_row, px, py
 
-    def unband(a):
-        a = a.reshape(bsz, n_bands * tile_h, tile_w, *a.shape[3:])
-        return a[:, :height, :width].contiguous()
 
-    return unband(tri), unband(color), unband(bary)
+def _unband(a, height: int, width: int, tile_h: int):
+    """(B, n_bands, band_px, ...) banded row-major pixels -> (B, H, W, ...)
+    cropped to the image."""
+    bsz, n_bands, band_px = a.shape[:3]
+    a = a.reshape(bsz, n_bands * tile_h, band_px // tile_h, *a.shape[3:])
+    return a[:, :height, :width].contiguous()
+
+
+def shade_windows_reference(win: Windows, records, *, height: int,
+                            width: int, tile_h: int, n_cols: int,
+                            n_faces: int):
+    """Plain PyTorch version of K1, on the same inputs: the plain z-test
+    (_band_winners), then the winner's barycentrics and blended radiance
+    with the kernel's float ops in its order."""
+    bsz = win.setup.shape[0]
+    dev = win.setup.device
+    n_bands = (height + tile_h - 1) // tile_h
+    band_px = tile_h * col_width(width, n_cols) * n_cols
+    tri = torch.full((bsz, n_bands, band_px), -1, dtype=torch.int32,
+                     device=dev)
+    color = torch.zeros((bsz, n_bands, band_px, 3), device=dev)
+    bary = torch.zeros_like(color)
+    for b, t, hit, ids, best_row, px, py in _band_winners(
+            win, height, width, tile_h, n_cols, n_faces):
+        rec = records[b, :17, best_row]                # (17, band_px)
+        qx = px - rec[15]
+        qy = py - rec[16]
+        w0 = rec[9] * qx + rec[10] * qy + rec[11]
+        w1 = rec[12] * qx + rec[13] * qy + rec[14]
+        w2 = 1.0 - w0 - w1
+        rgb = torch.stack([w0 * rec[c] + w1 * rec[c + 3]
+                           + w2 * rec[c + 6] for c in range(3)], -1)
+        hit3 = hit[:, None]
+        tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
+        color[b, t] = torch.where(hit3, rgb, 0.0)
+        bary[b, t] = torch.where(hit3, torch.stack([w0, w1, w2], -1), 0.0)
+    return tuple(_unband(a, height, width, tile_h)
+                 for a in (tri, color, bary))
+
+
+def select_windows_reference(win: Windows, records, *, height: int,
+                             width: int, tile_h: int, n_cols: int,
+                             n_faces: int):
+    """Plain PyTorch version of K2, on the same inputs: the plain z-test
+    (_band_winners), then a copy of the winner's fields 0..19."""
+    bsz = win.setup.shape[0]
+    dev = win.setup.device
+    n_bands = (height + tile_h - 1) // tile_h
+    band_px = tile_h * col_width(width, n_cols) * n_cols
+    tri = torch.full((bsz, n_bands, band_px), -1, dtype=torch.int32,
+                     device=dev)
+    row = torch.full_like(tri, -1)
+    sel = torch.zeros((bsz, n_bands, band_px, _SEL), device=dev)
+    for b, t, hit, ids, best_row, _, _ in _band_winners(
+            win, height, width, tile_h, n_cols, n_faces):
+        tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
+        row[b, t] = torch.where(hit, best_row, -1).to(torch.int32)
+        sel[b, t] = torch.where(hit[:, None], records[b, :_SEL, best_row].T,
+                                0.0)
+    tri, row, sel = (_unband(a, height, width, tile_h)
+                     for a in (tri, row, sel))
+    return tri, row, sel.permute(0, 3, 1, 2).contiguous()
+
+
+def _check_grad_inputs(row, g, blo, bn, rows: int, tile_h: int):
+    bsz, height, width = row.shape
+    n_bands = (height + tile_h - 1) // tile_h
+    if rows % _CHUNK:
+        raise ValueError(f"rows = {rows} is not a multiple of {_CHUNK}")
+    _check(g.device, {
+        "row": (row, torch.int32, (bsz, height, width)),
+        "g": (g, torch.float32, (bsz, _SEL, height, width)),
+        "blo": (blo, torch.int32, (bsz, n_bands)),
+        "bn": (bn, torch.int32, (bsz, n_bands)),
+    })
+
+
+def select_grad(row, g, blo, bn, *, rows: int, tile_h: int):
+    """The adjoint of the select: K3's wrapper.
+
+    row (B,H,W) int32 winner raster rows (-1 = background), g (B,20,H,W)
+    f32 cotangent of the select's fields, blo/bn the forward's band
+    windows. Returns d_rec (B, 24, rows) f32: per raster row, the sum of
+    its pixels' cotangent for fields 0..16, zero for fields 17..23.
+    Deterministic on the card (no float atomics). CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    _check_grad_inputs(row, g, blo, bn, rows, tile_h)
+    if not _on_card(g.device):
+        return select_grad_reference(row, g, blo, bn, rows=rows,
+                                     tile_h=tile_h)
+    bsz, height, width = row.shape
+    d_rec = torch.empty((bsz, _FIELDS, rows), dtype=torch.float32,
+                        device=g.device)
+    if bsz:
+        _launch("select_grad", g.device, (row, g, blo, bn, d_rec),
+                (bsz, height, width, tile_h, blo.shape[1], rows))
+    return d_rec
+
+
+def select_grad_reference(row, g, blo, bn, *, rows: int, tile_h: int):
+    """Plain PyTorch version of K3: one index_add_ of the covered pixels'
+    cotangent rows, in pixel order. It needs no band windows (they only
+    prune the kernel's walk), so `blo`, `bn` and `tile_h` go unused."""
+    del blo, bn, tile_h
+    bsz = row.shape[0]
+    hit = row >= 0
+    src = g[:, :_GRAD].permute(0, 2, 3, 1)[hit]              # (n, 17)
+    dst = (row.to(torch.int64)
+           + torch.arange(bsz, device=row.device)[:, None, None] * rows)[hit]
+    acc = g.new_zeros((bsz * rows, _GRAD)).index_add_(0, dst, src)
+    d_rec = g.new_zeros((bsz, _FIELDS, rows))
+    d_rec[:, :_GRAD] = acc.reshape(bsz, rows, _GRAD).transpose(1, 2)
+    return d_rec
+
+
+class RasterizeSelect(torch.autograd.Function):
+    """Differentiable raster + select (twin of the reference's _rs_core
+    custom VJP): differentiable in `records` only. The forward is K2
+    (select_windows); tri_id and row are integer outputs, marked
+    non-differentiable (tri_id frozen, SURVEY §9.6); the backward is K3
+    (select_grad) over the saved winner rows and band windows."""
+
+    @staticmethod
+    def forward(ctx, records, win: Windows, height: int, width: int,
+                tile_h: int, n_cols: int, n_faces: int):
+        tri_id, row, sel = select_windows(
+            win, records, height=height, width=width, tile_h=tile_h,
+            n_cols=n_cols, n_faces=n_faces)
+        ctx.save_for_backward(row, win.blo, win.bn)
+        ctx.mark_non_differentiable(tri_id, row)
+        ctx.rows, ctx.tile_h = records.shape[2], tile_h
+        return tri_id, row, sel
+
+    @staticmethod
+    def backward(ctx, _g_tri, _g_row, g_sel):
+        row, blo, bn = ctx.saved_tensors
+        d_rec = select_grad(row, g_sel.contiguous(), blo, bn,
+                            rows=ctx.rows, tile_h=ctx.tile_h)
+        return d_rec, None, None, None, None, None, None
 
 
 def _rasterize(core, records, verts_ndc, faces, height, width, tile_h,
@@ -254,3 +431,25 @@ def rasterize_shaded_reference(records, verts_ndc, faces, *, height: int,
     """rasterize_shaded through the plain version on any device."""
     return _rasterize(shade_windows_reference, records, verts_ndc, faces,
                       height, width, tile_h, n_cols, row_faces, row_id)
+
+
+def rasterize_select(records, verts_ndc, faces, *, height: int, width: int,
+                     tile_h: int, n_cols: int = 1, row_faces=None,
+                     row_id=None):
+    """Fused raster + winner-record select, the training render's hot
+    path (twin of the reference's rasterize_select).
+
+    records (B, 24, padded_rows(F')) f32 in raster row order; verts_ndc
+    (B, N, 3); faces (F, 3); row_faces/row_id the static raster row order
+    (identity when None). Returns (tri_id (B,H,W) int32, row (B,H,W)
+    int32, sel (B,20,H,W) f32). Differentiable in `records` only:
+    `verts_ndc` is detached (the binning and the z-test carry no
+    gradient) and tri_id is frozen."""
+    if row_faces is None:
+        row_faces = faces
+        row_id = torch.arange(faces.shape[0], device=faces.device)
+    with torch.no_grad():
+        win = band_windows(verts_ndc.detach(), row_faces, row_id, height,
+                           width, tile_h, n_cols)
+    return RasterizeSelect.apply(records.contiguous(), win, height, width,
+                                 tile_h, n_cols, faces.shape[0])

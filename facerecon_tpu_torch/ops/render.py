@@ -1,9 +1,18 @@
-"""Render path (twin of the inference path of facerecon_tpu/ops/render.py).
+"""Render path (twin of facerecon_tpu/ops/render.py).
 
 Per-face render records (radiance corners + the anchored affine forms
-that give the barycentrics) feed the fused rasterize+shade kernel, and
-the shaded face is composited over the background. Only the forward-only
-inference path exists in this port so far.
+that give the barycentrics) feed the fused rasterizers, and the shaded
+face is composited over the background. Two paths:
+
+- inference=True: forward only. The kernel K1 (`rasterize_shaded`)
+  shades in-kernel.
+- inference=False: the differentiable training render. K2
+  (`rasterize_select`) returns each pixel's winner record fields, and
+  `_shade_from_sel` rebuilds color, barycentrics and the skin mask from
+  them with differentiable ops; K3 is the select's adjoint. Gradients
+  reach the vertices through the records' affine forms (dL/dV_xy) and
+  the radiance corners; tri_id is frozen and depth gets none (SURVEY
+  §9.6).
 """
 
 from __future__ import annotations
@@ -17,22 +26,31 @@ from facerecon_tpu_torch.ops import rasterize
 from facerecon_tpu_torch.ops import sh as sh_ops
 from facerecon_tpu_torch.ops.binning import affine_forms, ndc_to_screen
 from facerecon_tpu_torch.ops.geometry import (DeviceBFM, Geometry,
-                                              coeffs_to_geometry)
+                                              coeffs_to_geometry,
+                                              take_corner_planes)
 from facerecon_tpu_torch.utils.coeffs import Coeffs
 
 
-def _render_fields(verts_ndc, radiance, faces, height: int, width: int):
+def _render_fields(verts_ndc, radiance, faces, height: int, width: int,
+                   corner_adj=None):
     """Corner gather + anchored affine forms -> 17 (B, F) field blocks
     [radiance corners r00..r22 (9, corner-major) | affine w-coefficients
     wa0, wb0, wc0, wa1, wb1, wc1 | anchor x0, y0]. The affine forms use
     the rasterizer setup's float ops, so the barycentrics rebuilt from a
-    pixel's winner record equal the rasterizer's exactly."""
+    pixel's winner record equal the rasterizer's exactly.
+
+    corner_adj: the corner-major adjacency matching `faces`
+    (DeviceBFM.raster_corner_adj for the raster rows); when given, the
+    corner gather's adjoint is a gather too (take_corner_planes)."""
     screen = ndc_to_screen(verts_ndc, height, width)          # (B,N,2)
     f = faces.shape[0]
     planes = (radiance[..., 0], radiance[..., 1], radiance[..., 2],
               screen[..., 0], screen[..., 1])                 # (B, N) x5
     idx = faces.T.reshape(-1)                                 # corner-major
-    corners = tuple(p[:, idx] for p in planes)
+    if corner_adj is None:
+        corners = tuple(p[:, idx] for p in planes)
+    else:
+        corners = take_corner_planes(planes, idx, corner_adj)
 
     def fld(c, k):
         return corners[k][:, c * f:(c + 1) * f]               # (B, F)
@@ -45,31 +63,65 @@ def _render_fields(verts_ndc, radiance, faces, height: int, width: int):
     return (*rad, wa0, wb0, wc0, wa1, wb1, wc1, fld(0, 3), fld(0, 4))
 
 
-def _stack24(fields, pad_rows: int):
+def _stack24(fields, pad_rows: int, skin=None):
     """(B, 24, pad_rows) f32 field-major record from the 17 field blocks:
-    [radiance 9 | w-coeffs 6 | anchor x0,y0 | zero 7], zero-padded rows."""
+    [radiance 9 | w-coeffs 6 | anchor x0,y0 | skin corners 3 | zero 4],
+    zero-padded rows. skin: optional static (3, F) per-corner skin mask
+    (DeviceBFM.raster_skin) for the training record; the select delivers
+    each pixel's winner skin corners, and they carry no gradient."""
     b, f = fields[0].shape
     rec = fields[0].new_zeros((b, rasterize._FIELDS, pad_rows))
     rec[:, :len(fields), :f] = torch.stack(fields, dim=1)
+    if skin is not None:
+        rec[:, len(fields):len(fields) + 3, :f] = skin
     return rec
 
 
 def pack_render_records(verts_ndc, radiance, faces, height: int, width: int,
                         pad_rows: int):
     """Per-face render attributes, field-major (B, 24, pad_rows) f32 —
-    _render_fields + _stack24. The kernel reads the winner's f32 fields
+    _render_fields + _stack24. The kernels read the winner's f32 fields
     directly (the reference's hi/lo bf16 split exists only for the TPU's
     bf16 matrix unit)."""
     return _stack24(_render_fields(verts_ndc, radiance, faces, height,
                                    width), pad_rows)
 
 
-def _require_inference(inference: bool) -> None:
-    if not inference:
-        raise NotImplementedError(
-            "the differentiable training render is not ported yet "
-            "(ROADMAP.md queue A, item 'Training path'); pass "
-            "inference=True")
+def _shade_from_sel(tri_id, sel, height: int, width: int):
+    """Color, barycentrics and skin mask from the select's winner fields
+    sel (B, 20, H, W), with differentiable ops (twin of the reference's
+    _shade_from_sel): the barycentrics evaluate the winner's anchored
+    affine forms, so the forward equals the rasterizer's bary exactly and
+    dL/dV_xy flows through the affine coefficients; dL/dradiance flows
+    through the radiance fields. The skin corners (fields 17..19) are
+    static, so the skin mask's gradient flows through the barycentrics
+    only. Float ops and order as the kernel K1's shading.
+
+    Returns (color (B,H,W,3), bary (B,H,W,3), skin (B,H,W)), zero on
+    background."""
+    dev = sel.device
+    px = (torch.arange(width, device=dev, dtype=torch.float32) + 0.5)[None,
+                                                                       None]
+    py = (torch.arange(height, device=dev, dtype=torch.float32)
+          + 0.5)[None, :, None]
+
+    def f(k):
+        return sel[:, k]
+
+    qx = px - f(15)
+    qy = py - f(16)
+    w0 = f(9) * qx + f(10) * qy + f(11)
+    w1 = f(12) * qx + f(13) * qy + f(14)
+    w2 = 1.0 - w0 - w1
+    hit = tri_id >= 0
+    color = torch.stack([torch.where(hit, w0 * f(c) + w1 * f(c + 3)
+                                     + w2 * f(c + 6), 0.0)
+                         for c in range(3)], dim=-1)
+    bary = torch.stack([torch.where(hit, v, 0.0) for v in (w0, w1, w2)],
+                       dim=-1)
+    sk = [f(17 + k).detach() for k in range(3)]
+    skin = torch.where(hit, w0 * sk[0] + w1 * sk[1] + w2 * sk[2], 0.0)
+    return color, bary, skin
 
 
 class RenderOut(NamedTuple):
@@ -79,7 +131,8 @@ class RenderOut(NamedTuple):
     bary: torch.Tensor        # (B,H,W,3) barycentrics
     radiance: torch.Tensor    # (B,N,3) per-vertex shaded color
     geometry: Geometry
-    skin: Optional[torch.Tensor] = None  # training path only
+    skin: Optional[torch.Tensor] = None  # (B,H,W) interpolated skin mask
+                                         # (training path only)
 
 
 def render_geometry(geom: Geometry, gamma, bfm: DeviceBFM,
@@ -87,31 +140,39 @@ def render_geometry(geom: Geometry, gamma, bfm: DeviceBFM,
                     background: Optional[torch.Tensor] = None,
                     image_size: Optional[int] = None,
                     inference: bool = False) -> RenderOut:
-    _require_inference(inference)
     h = w = image_size or cfg.image_size
     radiance = sh_ops.illuminate(geom.texture, geom.normals, gamma)
-    records = pack_render_records(
-        geom.verts_ndc, radiance, bfm.raster_rows, h, w,
-        rasterize.padded_rows(bfm.raster_rows.shape[0]))
-    tri_id, color, bary = rasterize.rasterize_shaded(
-        records, geom.verts_ndc, bfm.faces, height=h, width=w,
-        tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
-        row_faces=bfm.raster_rows, row_id=bfm.raster_row_id)
+    pad_rows = rasterize.padded_rows(bfm.raster_rows.shape[0])
+    kw = dict(height=h, width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+              row_faces=bfm.raster_rows, row_id=bfm.raster_row_id)
+    skin = None
+    if inference:
+        records = pack_render_records(geom.verts_ndc, radiance,
+                                      bfm.raster_rows, h, w, pad_rows)
+        tri_id, color, bary = rasterize.rasterize_shaded(
+            records, geom.verts_ndc, bfm.faces, **kw)
+    else:
+        fields = _render_fields(geom.verts_ndc, radiance, bfm.raster_rows,
+                                h, w, corner_adj=bfm.raster_corner_adj)
+        records = _stack24(fields, pad_rows, skin=bfm.raster_skin)
+        tri_id, _, sel = rasterize.rasterize_select(
+            records, geom.verts_ndc, bfm.faces, **kw)
+        color, bary, skin = _shade_from_sel(tri_id, sel, h, w)
     mask = (tri_id >= 0).to(torch.float32)
     if background is None:
         background = torch.zeros_like(color)
     image = color * mask[..., None] + background * (1.0 - mask[..., None])
     return RenderOut(image=image, mask=mask, tri_id=tri_id, bary=bary,
-                     radiance=radiance, geometry=geom)
+                     radiance=radiance, geometry=geom, skin=skin)
 
 
 def render_coeffs(coeffs: Coeffs, bfm: DeviceBFM, cfg: FaceReconConfig,
                   background: Optional[torch.Tensor] = None,
                   image_size: Optional[int] = None,
                   inference: bool = False) -> RenderOut:
-    """Coefficients -> composited image. Only inference=True (the
-    forward-only in-kernel-shaded path) is ported."""
-    _require_inference(inference)
+    """Coefficients -> composited image. inference=True takes the
+    forward-only in-kernel-shaded path (K1); the default is the
+    differentiable training render (K2 forward, K3 backward)."""
     geom = coeffs_to_geometry(coeffs, bfm, cfg)
     return render_geometry(geom, coeffs.gamma, bfm, cfg,
                            background=background, image_size=image_size,

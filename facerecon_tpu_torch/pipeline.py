@@ -1,9 +1,13 @@
-"""Reconstruction pipeline (twin of facerecon_tpu/pipeline.py, inference).
+"""Reconstruction pipeline (twin of facerecon_tpu/pipeline.py).
 
-images -> fused ResNet -> coefficients -> geometry -> SH-9 radiance ->
-fused rasterize+shade kernel -> composite over the input image. PyTorch
-runs eagerly, so there is no jit: `Pipeline.reconstruct` is the
-counterpart of the reference's `make_reconstruct_fn(inference=True)`.
+images -> ResNet -> coefficients -> geometry -> SH-9 radiance -> fused
+rasterizer -> composite over the input image. PyTorch runs eagerly, so
+there is no jit:
+  - `make_pipeline` holds the BN-folded inference model, and
+    `Pipeline.reconstruct` is the counterpart of the reference's
+    `make_reconstruct_fn(inference=True)`;
+  - `make_train_pipeline` holds the BatchNorm training model, and
+    `regress_coeffs` its forward (train.py builds the step on it).
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ import torch
 
 from facerecon_tpu_torch import resolve_device
 from facerecon_tpu_torch.config import FaceReconConfig
-from facerecon_tpu_torch.models.fused import (FusedResNetRegressor,
-                                              build_fused_model)
+from torch import nn
+
+from facerecon_tpu_torch.models.fused import build_fused_model
+from facerecon_tpu_torch.models.resnet import build_model
 from facerecon_tpu_torch.ops.geometry import DeviceBFM, device_bfm
 from facerecon_tpu_torch.ops.render import render_coeffs
 from facerecon_tpu_torch.utils.bfm import BFMAssets
@@ -27,7 +33,7 @@ from facerecon_tpu_torch.utils.coeffs import split_coeff
 class Pipeline:
     cfg: FaceReconConfig
     bfm: DeviceBFM
-    model: FusedResNetRegressor
+    model: nn.Module   # FusedResNetRegressor, or ResNetRegressor to train
     device: torch.device
 
     @torch.no_grad()
@@ -44,20 +50,46 @@ class Pipeline:
         return coeff_vec, coeffs, out
 
 
-def make_pipeline(cfg: FaceReconConfig, assets: BFMAssets, device="cuda",
-                  dtype=torch.bfloat16, depth: int = 50,
-                  seed: int = 0) -> Pipeline:
-    """Upload the assets and build the fused regressor with random weights
-    drawn from `seed` (load trained ones with
-    `pipe.model.load_state_dict(jax_params.fused_state_dict(...))`).
-
-    Turns TF32 off for the process: geometry must stay true float32, and
-    cuDNN would otherwise run float32 convolutions in TF32."""
+def _pipeline(cfg, assets, device, model) -> Pipeline:
+    """Turns TF32 off for the process (geometry must stay true float32,
+    and cuDNN would otherwise run float32 convolutions in TF32), then
+    uploads the assets and the model."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = build_fused_model(cfg, depth, dtype).reset_parameters_(
-        torch.Generator().manual_seed(seed))
-    model = model.to(dev, memory_format=torch.channels_last).eval()
+    model = model.to(dev, memory_format=torch.channels_last)
     return Pipeline(cfg=cfg, bfm=device_bfm(assets, dev), model=model,
                     device=dev)
+
+
+def make_pipeline(cfg: FaceReconConfig, assets: BFMAssets, device="cuda",
+                  dtype=torch.bfloat16, depth: int = 50,
+                  seed: int = 0) -> Pipeline:
+    """The inference pipeline: the fused regressor with random weights
+    drawn from `seed` (load trained ones with
+    `pipe.model.load_state_dict(jax_params.fused_state_dict(...))`)."""
+    model = build_fused_model(cfg, depth, dtype).reset_parameters_(
+        torch.Generator().manual_seed(seed))
+    return _pipeline(cfg, assets, device, model.eval())
+
+
+def make_train_pipeline(cfg: FaceReconConfig, assets: BFMAssets,
+                        device="cuda", dtype=torch.bfloat16, depth: int = 50,
+                        seed: int = 0) -> Pipeline:
+    """The training pipeline: the BatchNorm regressor, initialised as the
+    reference initialises it from `seed` (carry flax variables over with
+    `pipe.model.load_state_dict(jax_params.train_state_dict(...))`)."""
+    model = build_model(cfg, depth, dtype).reset_parameters_(
+        torch.Generator().manual_seed(seed))
+    return _pipeline(cfg, assets, device, model.train())
+
+
+def regress_coeffs(pipe: Pipeline, images, train: bool = False):
+    """images (B,H,W,3) in [0,1] -> coefficient vector (B, n_coeff).
+
+    train=True runs BatchNorm on the batch statistics and updates the
+    model's running statistics in place (the reference returns them as
+    new batch_stats); train=False uses the running statistics."""
+    images = torch.as_tensor(images, dtype=torch.float32, device=pipe.device)
+    pipe.model.train(train)
+    return pipe.model(images)

@@ -80,7 +80,7 @@ def test_compute_norm_matches(assets):
                          corner_adj=bfm.vertex_corner_adj,
                          corner_adj_cm=bfm.vertex_corner_adj_cm)
     got = TG.compute_norm(torch.from_numpy(v), tbfm.faces,
-                          tbfm.vertex_face_adj)
+                          tbfm.vertex_face_adj, tbfm.vertex_corner_adj_cm)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-6)
 

@@ -97,12 +97,3 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(cfg, assets):
     with pytest.raises(RuntimeError):
         t_device_bfm(assets)
 
-
-def test_training_render_is_not_ported_yet(cfg, assets):
-    from facerecon_tpu_torch.ops.geometry import device_bfm as t_device_bfm
-    from facerecon_tpu_torch.ops.render import render_coeffs
-    from facerecon_tpu_torch.utils.coeffs import split_coeff
-    coeff = torch.from_numpy(sample_coeffs(np.random.default_rng(2), cfg, 1))
-    with pytest.raises(NotImplementedError, match="Training path"):
-        render_coeffs(split_coeff(coeff, cfg), t_device_bfm(assets, "cpu"),
-                      cfg)
