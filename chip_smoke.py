@@ -12,7 +12,9 @@ Phases (any failed check raises, and the script exits non-zero):
      raster row order at the main path's batch and on a shuffled row
      order (windows beyond the 64-chunk mask); K3 (select_grad) on K2's
      winner rows with a cotangent drawn from a seed, twice (bitwise
-     deterministic). Times each kernel and its plain version.
+     deterministic); K4 (raster_pos) on both row orders as K1 and K2
+     (tri_id, depth and winner row exactly equal). Times each kernel and
+     its plain version.
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch (finite outputs, coverage, one K1 launch per
      call, agreement with the same float32 pipeline run on the CPU), a
@@ -24,13 +26,33 @@ Phases (any failed check raises, and the script exits non-zero):
      before and read just after (one K2 and one K3 launch a step, finite
      loss and gradients), then 10 steps on one rendered batch of 8, whose
      loss must fall.
-  6. prints the per-kernel JSON line, the card line, and as the last line
+  6. the §9.5 contract path (rasterize_batch, K4 + decode) at 224 px,
+     seeds 7 and 8, batch 4, on the asset row order and the identity
+     order: K4 first held against its plain version on each order's
+     windows (exactly equal), then the calls, one K4 launch each,
+     counters reset just before and read just after, against the native
+     oracle (tests/test_tpu_parity.py's bar: tri_id mismatches <= 5e-5
+     of covered pixels, none but depth ties; where tri_id agrees, bary
+     and zbuf within stated bounds, and zbuf within a bound of the exact
+     float64 depth); then evaluate.run at full scale (vertex MAE < 1e-3).
+  7. K5 (floor): K1, K2 and K4 alone on inputs precomputed once at
+     benchmarks/floor_probe.py's defaults (batch 128, tile_h 2, 4 columns,
+     frontal coefficients), each real-mask call held against its plain
+     version on its first 32 images, then timed with the real chunk masks
+     and with every bit set: ms per launch and the cost of each tested
+     chunk added.
+  8. K6 (ctz_walk): the live-chunk walk probe against its plain version
+     at benchmarks/ctzloop_probe.py's shape (2,048 programs, 4/8/16/32
+     live bits), exactly equal, then timed (counters reset just before):
+     ns per live chunk.
+  9. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Uses random weights from a seed and random images, as bench.py does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,6 +71,21 @@ H100_BYTES_S = 3.35e12   # HBM rate, H100 SXM data sheet
 H100_F32_S = 67e12       # float32 rate outside the tensor cores
 PAIR_FLOPS = 15      # f32 ops per pixel x triangle test (2 sub, 3 x 2 mul
                      # + 2 add, 1 add), comparisons not counted
+WALK_FLOPS = 7       # f32 ops per ctz_walk test (3 x (mul + add), 1 add)
+PARITY_SEEDS = (7, 8)    # contract parity (tests/test_tpu_parity.py)
+PARITY_BATCH = 4
+TIE_RATE = 5e-5      # tri_id mismatches allowed per covered pixel
+CONTRACT_BARY = 5e-5     # contract vs oracle where tri_id agrees: bary,
+CONTRACT_ZREL = 1e-4     # and zbuf relative (224 px readings 8.8e-6, 1.5e-5)
+CONTRACT_ZEXACT = 2e-6   # contract zbuf vs the exact float64 depth,
+                         # relative (224 px reading 4.5e-7)
+FLOOR_BATCH = 128    # K5: benchmarks/floor_probe.py's defaults
+FLOOR_TILE_H = 2
+FLOOR_COLS = 4
+FLOOR_CHECK = 32     # K5 images held against the plain versions
+WALK_PROGS = 2048    # K6: benchmarks/ctzloop_probe.py's shape
+WALK_LIVE = (4, 8, 16, 32)
+WALK_REPORTED = 8    # live bits of the K6 line in the kernels JSON
 DEVICE = "cuda"
 
 
@@ -132,13 +169,70 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _check_raster(name, main_batch, cfg, assets, rng, kernel, plain,
-                  compare):
+def _compare_shade(got, ref, where):
+    """K1's color and bary within 1e-6 of the plain version's."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))
+    if not err <= 1e-6:
+        raise AssertionError(f"raster_shade color/bary differ by {err} "
+                             f"({where})")
+    return err
+
+
+def _compare_exact(name, fields):
+    """A compare that holds each named output exactly equal."""
+    def compare(got, ref, where):
+        for k, what in fields:
+            if not torch.equal(got[k], ref[k]):
+                bad = int((got[k] != ref[k]).sum())
+                raise AssertionError(f"{name} {what} differs from the plain "
+                                     f"version at {bad} elements ({where})")
+        return 0.0
+    return compare
+
+
+def _raster_kernels():
+    """The rasterizer kernels: name -> (wrapper, plain version, compare of
+    the outputs after tri_id, whether the kernel reads the records). The
+    wrappers and plain versions all take (win, rec, **kw). K2's sel is a
+    copy of record values and K4 keeps the plain version's float32
+    order, so both are held exactly."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    return {
+        "raster_shade": (R.shade_windows, R.shade_windows_reference,
+                         _compare_shade, True),
+        "raster_select": (R.select_windows, R.select_windows_reference,
+                          _compare_exact("raster_select",
+                                         ((1, "row"), (2, "sel"))), True),
+        "raster_pos": (lambda win, rec, **kw: R.pos_windows(win, **kw),
+                       lambda win, rec, **kw: R.pos_windows_reference(
+                           win, **kw),
+                       _compare_exact("raster_pos",
+                                      ((1, "zbuf"), (2, "row"))), False),
+    }
+
+
+def _hold(name, got, ref, where) -> float:
+    """A rasterizer's outputs against its plain version's: tri_id exactly
+    equal, then the kernel's own compare. Returns the max |err|."""
+    if not torch.equal(got[0], ref[0]):
+        bad = int((got[0] != ref[0]).sum())
+        raise AssertionError(f"{name} tri_id differs from the plain "
+                             f"version at {bad} pixels ({where})")
+    return _raster_kernels()[name][2](got, ref, where)
+
+
+def _head(win, n: int):
+    """The windows of the first n images."""
+    return type(win)(*(t[:n] for t in win))
+
+
+def _check_raster(name, main_batch, cfg, assets, rng):
     """A rasterizer kernel against its plain version on both row orders.
     Returns the kernel line's numbers at the main path's shapes and the
     (windows, records, outputs) of the asset-order batch."""
     from facerecon_tpu_torch.data.synthetic import sample_coeffs
     from facerecon_tpu_torch.ops.geometry import device_bfm
+    kernel, plain, _, reads_records = _raster_kernels()[name]
     bfm = device_bfm(assets, DEVICE)
     s = cfg.image_size
     kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
@@ -151,11 +245,7 @@ def _check_raster(name, main_batch, cfg, assets, rng, kernel, plain,
         torch.cuda.synchronize()
         ref = plain(win, rec, **kw)
         torch.cuda.synchronize()
-        if not torch.equal(got[0], ref[0]):
-            bad = int((got[0] != ref[0]).sum())
-            raise AssertionError(f"{name} tri_id differs from the plain "
-                                 f"version at {bad} pixels ({order})")
-        err = compare(got, ref, order)
+        err = _hold(name, got, ref, order)
         max_err = max(max_err, err)
         bn_max = int(win.bn.max())
         if order == "shuffled" and bn_max <= 64:
@@ -169,9 +259,10 @@ def _check_raster(name, main_batch, cfg, assets, rng, kernel, plain,
               f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
               f"max|err|={err:.3g} (tri_id exact)")
         if order == "raster_rows":
-            bound_ms, bound_by = _bound(
-                _nbytes(win.setup, rec, win.blo, win.bn, win.cmask, *got),
-                pairs * PAIR_FLOPS, name)
+            inputs = (win.setup, win.blo, win.bn, win.cmask) + (
+                (rec,) if reads_records else ())
+            bound_ms, bound_by = _bound(_nbytes(*inputs, *got),
+                                        pairs * PAIR_FLOPS, name)
             result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
             main = (win, rec, got)
@@ -180,45 +271,6 @@ def _check_raster(name, main_batch, cfg, assets, rng, kernel, plain,
     del bfm
     torch.cuda.empty_cache()
     return dict(result, max_abs_err=max_err), main
-
-
-def check_raster_shade(cfg, assets, rng):
-    """K1 against its plain version, both row orders: tri_id exact,
-    color and bary within 1e-6."""
-    from facerecon_tpu_torch.ops import rasterize as R
-
-    def compare(got, ref, order):
-        err = max(float((a - b).abs().max()) for a, b in zip(got[1:],
-                                                             ref[1:]))
-        if not err <= 1e-6:
-            raise AssertionError(f"raster_shade color/bary differ by {err} "
-                                 f"({order})")
-        return err
-
-    measured, _ = _check_raster("raster_shade", MICRO, cfg, assets, rng,
-                                R.shade_windows, R.shade_windows_reference,
-                                compare)
-    return measured
-
-
-def check_raster_select(cfg, assets, rng):
-    """K2 against its plain version, both row orders: tri_id, row and sel
-    exactly equal (sel is a copy of record values). Returns the kernel
-    line's numbers and the asset-order batch's windows and outputs."""
-    from facerecon_tpu_torch.ops import rasterize as R
-
-    def compare(got, ref, order):
-        for k, what in ((1, "row"), (2, "sel")):
-            if not torch.equal(got[k], ref[k]):
-                bad = int((got[k] != ref[k]).sum())
-                raise AssertionError(f"raster_select {what} differs from "
-                                     f"the plain version at {bad} "
-                                     f"elements ({order})")
-        return float((got[2] - ref[2]).abs().max())
-
-    return _check_raster("raster_select", TRAIN_BATCH, cfg, assets, rng,
-                         R.select_windows, R.select_windows_reference,
-                         compare)
 
 
 def check_select_grad(cfg, main):
@@ -268,6 +320,297 @@ def check_select_grad(cfg, main):
           f"two launches bitwise equal)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
+
+
+def _depth_f64(vndc, faces, ids, px, py, size: int):
+    """The exact planar depth of face ids[k] at pixel center (px[k],
+    py[k]), in float64 from the float32 vertices: the oracle's screen
+    corners, edge functions and blend of the corner depths, unrounded."""
+    v = vndc.astype(np.float64)
+    x = (v[:, 0] + 1.0) * (size / 2.0)
+    y = (1.0 - v[:, 1]) * (size / 2.0)
+    f = faces[ids]
+    (x0, x1, x2), (y0, y1, y2), (z0, z1, z2) = (
+        [a[f[:, k]] for k in range(3)] for a in (x, y, v[:, 2]))
+    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    e0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
+    e1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
+    e2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+    return (e0 * z0 + e1 * z1 + e2 * z2) / area
+
+
+def check_contract(cfg, assets):
+    """The §9.5 contract path on the card against the native oracle, with
+    tests/test_tpu_parity.py's bar: over seeds 7 and 8 (batch 4,
+    sample_coeffs scale 0.3) and both row orders, tri_id mismatches
+    <= 5e-5 of covered pixels, and every mismatch a depth tie on a pixel
+    both cover (|dz| < 1e-3); where tri_id agrees, bary within
+    CONTRACT_BARY and zbuf within CONTRACT_ZREL relative, and within
+    CONTRACT_ZEXACT relative of the exact float64 depth (the zbuf gap is
+    split there into the kernel's and the oracle's). First K4 is held
+    against its plain version on each order's windows (its two launch
+    shapes here: the asset order's column tiles and the identity order's
+    one 224-px column), and each contract call must return those checked
+    tri_id and zbuf. One K4 launch a call; the launch counters are reset just
+    before the calls and read just after. Returns the launch counts."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry, device_bfm
+    from facerecon_tpu_torch.utils import native_oracle
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    native_oracle.require()
+    bfm = device_bfm(assets, DEVICE)
+    s = cfg.image_size
+    n_faces = assets.n_faces
+    orders = {"raster_rows": dict(n_cols=cfg.raster_cols,
+                                  row_faces=bfm.raster_rows,
+                                  row_id=bfm.raster_row_id),
+              "identity": dict(n_cols=1)}
+    verts = {}
+    for seed in PARITY_SEEDS:
+        c = split_coeff(torch.as_tensor(sample_coeffs(
+            np.random.default_rng(seed), cfg, PARITY_BATCH, scale=0.3),
+            device=DEVICE), cfg)
+        verts[seed] = coeffs_to_geometry(c, bfm, cfg).verts_ndc
+
+    # K4 against its plain version at the contract's launch shapes
+    pos = {}
+    for seed in PARITY_SEEDS:
+        for order, okw in orders.items():
+            win = R.band_windows(
+                verts[seed], okw.get("row_faces", bfm.faces),
+                okw.get("row_id", torch.arange(n_faces, device=DEVICE)),
+                s, s, cfg.tile_h, okw["n_cols"])
+            kw = dict(height=s, width=s, tile_h=cfg.tile_h,
+                      n_cols=okw["n_cols"], n_faces=n_faces)
+            got = R.pos_windows(win, **kw)
+            torch.cuda.synchronize()
+            _hold("raster_pos", got, R.pos_windows_reference(win, **kw),
+                  f"contract, {order}, seed {seed}")
+            pos[seed, order] = win.setup, got
+    for order, okw in orders.items():
+        col_w = R.col_width(s, okw["n_cols"])
+        print(f"contract [{order}]: raster_pos equal to the plain version "
+              f"(tri_id, zbuf, row) at {okw['n_cols']} column(s) of "
+              f"{col_w} px, {cfg.tile_h * col_w} threads a block, seeds "
+              f"{PARITY_SEEDS}")
+    torch.cuda.synchronize()
+
+    # the contract path: counts from 0, one call per seed and order
+    _build.reset_launches()
+    outs = {}
+    for seed in PARITY_SEEDS:
+        for order, okw in orders.items():
+            before = _build.LAUNCHES["raster_pos"]
+            out = R.rasterize_batch(verts[seed], bfm.faces, height=s,
+                                    width=s, cfg=cfg, **okw)
+            if _build.LAUNCHES["raster_pos"] != before + 1:
+                raise AssertionError("rasterize_batch did not launch "
+                                     "raster_pos exactly once")
+            _, (tid, zbuf, _) = pos[seed, order]
+            if not (torch.equal(out[0], tid) and torch.equal(out[2], zbuf)):
+                raise AssertionError("rasterize_batch's tri_id or zbuf is "
+                                     "not the checked K4 output")
+            outs[seed, order] = [t.cpu().numpy() for t in out]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"contract path: {len(outs)} rasterize_batch calls, launches "
+          f"{launches}")
+    if launches != dict(launches, raster_pos=len(outs), raster_shade=0,
+                        raster_select=0, select_grad=0, ctz_walk=0):
+        raise AssertionError("the contract path did not launch raster_pos "
+                             "once per call (and nothing else)")
+    ms = _time_ms(lambda: R.rasterize_batch(
+        verts[PARITY_SEEDS[0]], bfm.faces, height=s, width=s, cfg=cfg,
+        **orders["raster_rows"]), reps=10)
+
+    faces = assets.faces
+    jj, ii = np.meshgrid(np.arange(s) + 0.5, np.arange(s) + 0.5)
+    for order in orders:
+        mism = cov = bad_depth = 0
+        bary_err = z_rel = 0.0
+        split = dict(kernel=0.0, oracle=0.0, evaluation=0.0, setup=0.0)
+        for seed in PARITY_SEEDS:
+            vndc = verts[seed].cpu().numpy()
+            tid_t, bary_t, z_t = outs[seed, order]
+            setup, (_, _, row) = pos[seed, order]
+            for b in range(PARITY_BATCH):
+                tid_o, bary_o, z_o = native_oracle.rasterize(vndc[b], faces,
+                                                             s, s)
+                covered = (tid_o >= 0) | (tid_t[b] >= 0)
+                cov += int(covered.sum())
+                d = covered & (tid_t[b] != tid_o)
+                mism += int(d.sum())
+                both = (tid_o >= 0) & (tid_t[b] >= 0)
+                tie_ok = both & (np.abs(np.where(both, z_o, 0.0)
+                                        - np.where(both, z_t[b], 0.0))
+                                 < 1e-3)
+                bad_depth += int((d & ~tie_ok).sum())
+                same = both & ~d
+                bary_err = max(bary_err, float(np.abs(
+                    bary_t[b][same] - bary_o[same]).max()))
+                zt, zo = z_t[b][same], z_o[same]
+                z_rel = max(z_rel, float((np.abs(zt - zo) / zo).max()))
+                # the gap against the exact depth: the kernel's float32
+                # evaluation of its anchored form, that form's float32
+                # coefficients (the setup), and the oracle's blend
+                px, py = jj[same], ii[same]
+                exact = _depth_f64(vndc[b], faces, tid_o[same], px, py, s)
+                sf = setup[b].cpu().numpy()[:, row[b].cpu().numpy()[same]]
+                za, zb, z0, x0, y0 = sf[6:11].astype(np.float64)
+                affine = za * (px - x0) + zb * (py - y0) + z0
+                for key, val in (("kernel", zt - exact),
+                                 ("oracle", zo - exact),
+                                 ("evaluation", zt - affine),
+                                 ("setup", affine - exact)):
+                    split[key] = max(split[key],
+                                     float((np.abs(val) / exact).max()))
+        rate = mism / cov
+        print(f"contract parity [{order}] seeds {PARITY_SEEDS} batch "
+              f"{PARITY_BATCH}: mismatch {mism} of {cov} covered px "
+              f"(rate {rate:.3g}), bad_depth {bad_depth}; where tri_id "
+              f"agrees max|bary diff| {bary_err:.3g} (bound "
+              f"{CONTRACT_BARY:g}), max relative zbuf diff {z_rel:.3g} "
+              f"(bound {CONTRACT_ZREL:g})")
+        print(f"contract zbuf [{order}] max relative error against the "
+              f"exact float64 depth: kernel {split['kernel']:.3g} (bound "
+              f"{CONTRACT_ZEXACT:g}; its "
+              f"float32 evaluation {split['evaluation']:.3g}, its float32 "
+              f"setup {split['setup']:.3g}), oracle {split['oracle']:.3g}")
+        if not (cov > 0 and rate <= TIE_RATE and bad_depth == 0):
+            raise AssertionError(f"contract parity failed ({order})")
+        if not (bary_err <= CONTRACT_BARY and z_rel <= CONTRACT_ZREL
+                and split["kernel"] <= CONTRACT_ZEXACT):
+            raise AssertionError(f"contract bary or zbuf beyond its bound "
+                                 f"({order})")
+    print(f"contract path: rasterize_batch batch {PARITY_BATCH} asset "
+          f"order {ms:.4f} ms per call")
+    del bfm, pos
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_evaluate():
+    """evaluate.run at full scale on the card: vertex MAE < 1e-3 and the
+    contract met."""
+    from facerecon_tpu_torch import evaluate
+    report = evaluate.run(4, device=DEVICE)
+    if not (report["vertex_mae"] < 1e-3 and report["meets_contract"]):
+        raise AssertionError(f"evaluate failed the contract: {report}")
+    torch.cuda.empty_cache()
+
+
+def check_floor(cfg, assets):
+    """K5: K1, K2 and K4 alone on inputs precomputed once, at
+    benchmarks/floor_probe.py's defaults, with the real chunk masks and
+    with every mask bit set (every chunk of the first 64 of a window is
+    tested; values not checked, only the time). Each kernel's real-mask
+    call is first held against its plain version on its first
+    FLOOR_CHECK images."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    fcfg = dataclasses.replace(cfg, tile_h=FLOOR_TILE_H,
+                               raster_cols=FLOOR_COLS)
+    bfm = device_bfm(assets, DEVICE)
+    rec, win = _inputs(fcfg, bfm, sample_coeffs(
+        np.random.default_rng(0), fcfg, FLOOR_BATCH, scale=0.0),
+        "raster_rows")
+    ones = win._replace(cmask=torch.full_like(win.cmask, -1))
+    sub, sub_rec = _head(win, FLOOR_CHECK), rec[:FLOOR_CHECK]
+    s = cfg.image_size
+    kw = dict(height=s, width=s, tile_h=fcfg.tile_h, n_cols=fcfg.raster_cols,
+              n_faces=assets.n_faces)
+    live = int(_popcount(win.cmask).sum())
+    added = win.cmask.numel() * 32 - live    # chunks the saturated masks add
+    n_ops = _live_pairs(win, fcfg) * PAIR_FLOPS
+    for name, (kernel, plain, _, reads_records) in _raster_kernels().items():
+        got = kernel(win, rec, **kw)
+        torch.cuda.synchronize()
+        err = _hold(name, tuple(t[:FLOOR_CHECK] for t in got),
+                    plain(sub, sub_rec, **kw),
+                    f"floor, first {FLOOR_CHECK} images")
+        reads = (win.setup, win.blo, win.bn, win.cmask) + (
+            (rec,) if reads_records else ())
+        bound_ms, bound_by = _bound(_nbytes(*reads, *got), n_ops,
+                                    f"floor {name} (real masks)")
+        del got
+        t_real = _time_ms(lambda: kernel(win, rec, **kw), reps=8)
+        t_ones = _time_ms(lambda: kernel(ones, rec, **kw), reps=8)
+        print(f"floor {name}: batch {FLOOR_BATCH} tile_h {fcfg.tile_h} "
+              f"{fcfg.raster_cols} cols frontal, real masks {t_real:.4f} ms "
+              f"({live} tested chunks; first {FLOOR_CHECK} images equal to "
+              f"the plain version, max|err| {err:.3g}), saturated "
+              f"{t_ones:.4f} ms (+{added} chunks): "
+              f"{(t_ones - t_real) * 1e6 / added:.3f} ns per chunk added; "
+              f"real-mask bound {bound_ms:.4f} ms by {bound_by}")
+    del bfm, rec, win, ones, sub, sub_rec
+    torch.cuda.empty_cache()
+
+
+def check_ctz_walk():
+    """K6 against its plain version at the probe's shape, exactly equal
+    for each live-bit count; then the timed probe run (the counters
+    reset just before and read just after). Returns the kernel line's
+    numbers (at WALK_REPORTED live bits) and the launch counts."""
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import probes
+    rng = np.random.default_rng(0)
+    setup = torch.as_tensor(rng.standard_normal(probes.SETUP_SHAPE),
+                            dtype=torch.float32, device=DEVICE)
+    masks = {}
+    for live in WALK_LIVE:
+        bits = np.zeros(WALK_PROGS, np.int64)
+        for r in range(WALK_PROGS):
+            idx = rng.choice(32, size=live, replace=False)
+            bits[r] = int(np.sum(1 << idx.astype(np.int64)))
+        masks[live] = torch.as_tensor(bits.astype(np.uint32).view(np.int32),
+                                      device=DEVICE)
+    for live, mask in masks.items():
+        got = probes.ctz_walk(mask, setup)
+        torch.cuda.synchronize()
+        ref = probes.ctz_walk_reference(mask, setup)
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"ctz_walk differs from the plain version "
+                                 f"at {bad} values ({live} live bits)")
+
+    # the probe's run: counts from 0
+    _build.reset_launches()
+    times = {live: _time_ms(lambda: probes.ctz_walk(mask, setup), reps=20)
+             for live, mask in masks.items()}
+    launches = dict(_build.LAUNCHES)
+    for live, ms in times.items():
+        print(f"ctz_walk: {WALK_PROGS} programs x {live} live bits "
+              f"{ms:.4f} ms, {ms * 1e6 / (WALK_PROGS * live):.3f} ns per "
+              f"live chunk (equal to the plain version)")
+    mask = masks[WALK_REPORTED]
+    plain_ms = _time_ms(lambda: probes.ctz_walk_reference(mask, setup),
+                        reps=3)
+    # the amin yardstick: one amin over the masked per-chunk minima, the
+    # coverage tests precomputed outside the timed call. It is the last
+    # step of K6's function, not the function, so the kernel line's
+    # library_ms stays null (no single PyTorch call computes K6)
+    shift = torch.arange(32, device=DEVICE, dtype=torch.int64)
+    on = ((mask.to(torch.int64)[:, None] >> shift) & 1).bool()
+    s = setup[:6, :32 * probes.CHUNK].reshape(6, 32, probes.CHUNK)
+    p = torch.arange(probes.COL_PX, device=DEVICE,
+                     dtype=torch.float32)[:, None, None]
+    e0, e1, ez = (s[k] * p + s[k + 1] for k in (0, 2, 4))
+    cmin = torch.where((e0 >= 0) & (e1 >= 0) & (e0 + e1 <= 1), ez,
+                       float("inf")).amin(dim=2)
+    masked = torch.where(on[:, None, :], cmin, float("inf"))
+    amin_ms = _time_ms(lambda: masked.amin(dim=2), reps=20)
+    print(f"ctz_walk at {WALK_REPORTED} live bits: kernel "
+          f"{times[WALK_REPORTED]:.4f} ms, plain version {plain_ms:.4f} ms, "
+          f"its final amin alone {amin_ms:.4f} ms")
+    out = probes.ctz_walk(mask, setup)
+    n_tests = WALK_PROGS * WALK_REPORTED * probes.CHUNK * probes.COL_PX
+    bound_ms, bound_by = _bound(_nbytes(mask, setup, out),
+                                n_tests * WALK_FLOPS, "ctz_walk")
+    return dict(ms=times[WALK_REPORTED], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                max_abs_err=0.0), launches
 
 
 def check_end_to_end(cfg, assets, rng):
@@ -350,7 +693,7 @@ def check_end_to_end(cfg, assets, rng):
     print(f"inference main path: {n_calls} reconstruct calls, launches "
           f"{launches}")
     if launches != dict(launches, raster_shade=n_calls, raster_select=0,
-                        select_grad=0):
+                        select_grad=0, raster_pos=0, ctz_walk=0):
         raise AssertionError("the inference main path did not launch "
                              "raster_shade once per call (and nothing "
                              "else)")
@@ -432,7 +775,8 @@ def check_training(cfg, assets):
             [torch.isfinite(p.grad).all() for p in params]
             + [torch.isfinite(parts["total"])]).all())
         new = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-        if new != {"raster_shade": 0, "raster_select": 1, "select_grad": 1}:
+        if new != {"raster_shade": 0, "raster_select": 1, "select_grad": 1,
+                   "raster_pos": 0, "ctz_walk": 0}:
             raise AssertionError(f"a training step launched {new}")
         return parts
 
@@ -563,22 +907,33 @@ def main() -> int:
           f"{assets.n_faces} faces, {assets.raster_rows.shape[0]} raster "
           f"rows, tile_h {cfg.tile_h}, {cfg.raster_cols} columns")
     rng = np.random.default_rng(0)
-    measured = {"raster_shade": check_raster_shade(cfg, assets, rng)}
-    measured["raster_select"], main_select = check_raster_select(
-        cfg, assets, rng)
+    measured = {"raster_shade": _check_raster("raster_shade", MICRO, cfg,
+                                              assets, rng)[0]}
+    measured["raster_select"], main_select = _check_raster(
+        "raster_select", TRAIN_BATCH, cfg, assets, rng)
     measured["select_grad"] = check_select_grad(cfg, main_select)
     del main_select
     torch.cuda.empty_cache()
+    measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
+                                           rng)[0]
     launches = check_end_to_end(cfg, assets, rng)
     train_launches = check_training(cfg, assets)
+    contract_launches = check_contract(cfg, assets)
+    check_evaluate()
+    check_floor(cfg, assets)
+    measured["ctz_walk"], walk_launches = check_ctz_walk()
     launches.update(raster_select=train_launches["raster_select"],
-                    select_grad=train_launches["select_grad"])
+                    select_grad=train_launches["select_grad"],
+                    raster_pos=contract_launches["raster_pos"],
+                    ctz_walk=walk_launches["ctz_walk"])
 
     # what each kernel replaces: the Pallas kernel body, file:line
     replaces = {
         "raster_shade": "facerecon_tpu/ops/rasterize_pallas.py:133",
         "raster_select": "facerecon_tpu/ops/rasterize_pallas.py:133",
-        "select_grad": "facerecon_tpu/ops/rasterize_pallas.py:1109"}
+        "select_grad": "facerecon_tpu/ops/rasterize_pallas.py:1109",
+        "raster_pos": "facerecon_tpu/ops/rasterize_pallas.py:133",
+        "ctz_walk": "benchmarks/ctzloop_probe.py:48"}
     kernels = [dict(
         name=name, route="cuda",
         source=f"facerecon_tpu_torch/csrc/{name}.cu",

@@ -8,9 +8,10 @@ header in `csrc/` and the flags, so a checkout builds what it needs on
 its first call and reuses it afterwards, and an edited header rebuilds
 every kernel. A failed build raises: there is no fallback.
 
-`LAUNCHES` counts kernel launches by name; each wrapper adds one where it
-launches its kernel, so a run can show which kernels its path went
-through.
+`launch` calls a kernel's C entry on the current stream and adds one to
+its count in `LAUNCHES`; the wrappers launch through it and nowhere
+else, so a run can show which kernels its path went through. `on_card`
+and `check_tensors` are the wrappers' shared input checks.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-KERNELS = ("raster_shade", "raster_select", "select_grad")
+import torch
+
+KERNELS = ("raster_shade", "raster_select", "select_grad", "raster_pos",
+           "ctz_walk")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -101,3 +105,40 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def on_card(dev: torch.device) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); raises on any other device."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def check_tensors(dev, want) -> None:
+    """Raise unless every tensor in `want` (name -> (tensor, dtype, shape))
+    lies on `dev` with that dtype and shape and is contiguous."""
+    for name, (t, dtype, shape) in want.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def launch(name: str, dev: torch.device, ptrs, ints) -> None:
+    """Launch kernel `name` (built at first use) on the current stream of
+    `dev`: its C entry takes the pointers, then the ints, then the
+    stream, and returns the launch's CUDA error code."""
+    fn = getattr(load(name), name)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

@@ -75,10 +75,13 @@ def _argmax_first(x, dim):
 
 def bin_triangles_static_t(verts_ndc, faces, height: int, width: int,
                            tile_h: int, chunk: int,
+                           cull_backfaces: bool = False,
                            tile_w: int = 128,
                            mask_words: int = 2) -> StaticSetupT:
     """Field-major triangle setup + band union windows + EXACT per-chunk
     column masks (twin of the reference's bin_triangles_static_t).
+    cull_backfaces also kills every triangle of positive screen area
+    (the reference's rule, with y pointing down).
 
     The masks are packed bit-parallel: the absolute chunk-hit matrix goes
     into 32-bit words (held in int64, since torch has little uint32
@@ -106,6 +109,8 @@ def bin_triangles_static_t(verts_ndc, faces, height: int, width: int,
     v2 = y2 - y0
     area = u1 * v2 - v1 * u2
     dead = torch.abs(area) <= 1e-12
+    if cull_backfaces:
+        dead = dead | (area > 0)
     inv_area = torch.where(dead, 0.0, 1.0 / torch.where(dead, 1.0, area))
     wa0 = (v1 - v2) * inv_area
     wb0 = (u2 - u1) * inv_area

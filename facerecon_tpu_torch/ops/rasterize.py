@@ -8,7 +8,7 @@ set in its exact chunk mask (ops/binning.py). The z-test compares
 (depth, original face id) lexicographically, so the lowest-face-id tie
 rule holds under any row order.
 
-`band_windows` builds the kernels' inputs. Three kernels, each with a
+`band_windows` builds the kernels' inputs. Four kernels, each with a
 wrapper that launches it on CUDA tensors, runs its plain PyTorch version
 (`*_reference`, the same function) on CPU tensors, and counts launches in
 `_build.LAUNCHES`:
@@ -17,14 +17,17 @@ wrapper that launches it on CUDA tensors, runs its plain PyTorch version
   - `select_windows` -> `csrc/raster_select.cu` (K2, training forward:
     z-test + the winner's record fields and raster row);
   - `select_grad` -> `csrc/select_grad.cu` (K3, K2's adjoint: per raster
-    row, the sum of its pixels' cotangent).
+    row, the sum of its pixels' cotangent);
+  - `pos_windows` -> `csrc/raster_pos.cu` (K4, the z-test alone: winner
+    face id, depth and raster row).
 `RasterizeSelect` is the autograd Function over K2 and K3, and
-`rasterize_select` chains binning and it.
+`rasterize_select` chains binning and it. `rasterize_positions` chains
+binning and K4, and `rasterize_batch` (the §9.5 (tri_id, bary, zbuf)
+contract) decodes K4's winners.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -67,7 +70,8 @@ class Windows(NamedTuple):
 
 
 def band_windows(verts_ndc, row_faces, row_id, height: int, width: int,
-                 tile_h: int, n_cols: int) -> Windows:
+                 tile_h: int, n_cols: int,
+                 cull_backfaces: bool = False) -> Windows:
     """Static binning over the raster row order (twin of the reference's
     _band_windows): per-band union windows, per-(band, column) exact
     chunk masks, and the padded field-major setup whose field 12 carries
@@ -75,7 +79,7 @@ def band_windows(verts_ndc, row_faces, row_id, height: int, width: int,
     cover a pixel."""
     bsz = verts_ndc.shape[0]
     st = bin_triangles_static_t(verts_ndc, row_faces, height, width,
-                                tile_h, _CHUNK,
+                                tile_h, _CHUNK, cull_backfaces,
                                 tile_w=col_width(width, n_cols),
                                 mask_words=_MWORDS)
     f = st.coeffs_t[0].shape[1]
@@ -88,57 +92,27 @@ def band_windows(verts_ndc, row_faces, row_id, height: int, width: int,
                    cmask=st.chunk_mask.reshape(bsz, -1), setup=setup)
 
 
-def _check(dev, want) -> None:
-    """Raise unless every tensor in `want` (name -> (tensor, dtype, shape))
-    lies on `dev` with that dtype and shape and is contiguous."""
-    for name, (t, dtype, shape) in want.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check_inputs(win: Windows, records, height, width, tile_h, n_cols):
+    """Check the windows (and the records, where the kernel takes them)
+    against the kernel's layout, all on the setup's device."""
     bsz, _, rows = win.setup.shape
     n_bands = (height + tile_h - 1) // tile_h
-    _check(records.device, {
+    want = {
         "setup": (win.setup, torch.float32, (bsz, _ROW_PAD, rows)),
-        "records": (records, torch.float32, (bsz, _FIELDS, rows)),
         "blo": (win.blo, torch.int32, (bsz, n_bands)),
         "bn": (win.bn, torch.int32, (bsz, n_bands)),
         "cmask": (win.cmask, torch.int32, (bsz, n_bands * n_cols * _MWORDS)),
-    })
-
-
-def _on_card(dev: torch.device) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one
-    (take the plain version); raises on any other device."""
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
-def _launch(name: str, dev: torch.device, ptrs, ints) -> None:
-    """Launch kernel `name` (built at first use) on the current stream of
-    `dev`: its C entry takes the pointers, then the ints, then the
-    stream, and returns the launch's CUDA error code."""
-    fn = getattr(_build.load(name), name)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    _build.LAUNCHES[name] += 1
+    }
+    if records is not None:
+        want["records"] = (records, torch.float32, (bsz, _FIELDS, rows))
+    _build.check_tensors(win.setup.device, want)
 
 
 def _raster_ints(win: Windows, height, width, tile_h, n_cols, n_faces):
-    """The raster kernels' int arguments, after the block-size check."""
+    """The raster kernels' int arguments, after the block-size check: the
+    kernels run one thread a pixel of a band's column tile, so a tile of
+    more than 1024 pixels is refused here, on the launch path only (the
+    plain versions take any band)."""
     col_w = col_width(width, n_cols)
     if tile_h * col_w > 1024:
         raise ValueError(f"tile_h * col_width = {tile_h * col_w} pixels "
@@ -158,7 +132,7 @@ def shade_windows(win: Windows, records, *, height: int, width: int,
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     _check_inputs(win, records, height, width, tile_h, n_cols)
-    if not _on_card(records.device):
+    if not _build.on_card(records.device):
         return shade_windows_reference(win, records, height=height,
                                        width=width, tile_h=tile_h,
                                        n_cols=n_cols, n_faces=n_faces)
@@ -169,8 +143,9 @@ def shade_windows(win: Windows, records, *, height: int, width: int,
     bary = torch.empty_like(color)
     ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
     if bsz:
-        _launch("raster_shade", dev, (win.setup, records, win.blo, win.bn,
-                                      win.cmask, tri_id, color, bary), ints)
+        _build.launch("raster_shade", dev, (win.setup, records, win.blo,
+                                            win.bn, win.cmask, tri_id, color,
+                                            bary), ints)
     return tri_id, color, bary
 
 
@@ -185,7 +160,7 @@ def select_windows(win: Windows, records, *, height: int, width: int,
     fields 0..19 of the winner's record, zero on background). CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     _check_inputs(win, records, height, width, tile_h, n_cols)
-    if not _on_card(records.device):
+    if not _build.on_card(records.device):
         return select_windows_reference(win, records, height=height,
                                         width=width, tile_h=tile_h,
                                         n_cols=n_cols, n_faces=n_faces)
@@ -196,17 +171,44 @@ def select_windows(win: Windows, records, *, height: int, width: int,
                       device=dev)
     ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
     if bsz:
-        _launch("raster_select", dev, (win.setup, records, win.blo, win.bn,
-                                       win.cmask, tri_id, row, sel), ints)
+        _build.launch("raster_select", dev, (win.setup, records, win.blo,
+                                             win.bn, win.cmask, tri_id, row,
+                                             sel), ints)
     return tri_id, row, sel
+
+
+def pos_windows(win: Windows, *, height: int, width: int, tile_h: int,
+                n_cols: int, n_faces: int):
+    """The z-test alone from prepared windows: K4's wrapper.
+
+    Returns (tri_id (B,H,W) int32 original face ids, -1 = background;
+    zbuf (B,H,W) f32 the winner's depth, +inf on background; row (B,H,W)
+    int32 the winner's raster row, -1 on background). CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    _check_inputs(win, None, height, width, tile_h, n_cols)
+    dev = win.setup.device
+    if not _build.on_card(dev):
+        return pos_windows_reference(win, height=height, width=width,
+                                     tile_h=tile_h, n_cols=n_cols,
+                                     n_faces=n_faces)
+    bsz = win.setup.shape[0]
+    tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
+    zbuf = torch.empty((bsz, height, width), dtype=torch.float32, device=dev)
+    row = torch.empty_like(tri_id)
+    ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
+    if bsz:
+        _build.launch("raster_pos", dev, (win.setup, win.blo, win.bn,
+                                          win.cmask, tri_id, zbuf, row), ints)
+    return tri_id, zbuf, row
 
 
 def _band_winners(win: Windows, height: int, width: int, tile_h: int,
                   n_cols: int, n_faces: int):
     """The plain z-test shared by the kernels' plain versions. Yields
-    (b, t, hit, ids, best_row, px, py) for every band with a window:
-    per pixel of the padded band (row-major), whether a face covers it,
-    the winner's original face id and raster row, and the pixel center.
+    (b, t, hit, ids, best_row, best_z, px, py) for every band with a
+    window: per pixel of the padded band (row-major), whether a face
+    covers it, the winner's original face id, raster row and depth, and
+    the pixel center.
 
     Walks each band's whole union window [blo, blo + bn) in row blocks,
     without the column masks: they prune only chunks that cover none of
@@ -255,7 +257,7 @@ def _band_winners(win: Windows, height: int, width: int, tile_h: int,
                 best_row = torch.where(better, row, best_row)
             ids = best_id.to(torch.int64)
             hit = (best_z < 3e37) & (ids >= 0) & (ids < n_faces)
-            yield b, t, hit, ids, best_row, px, py
+            yield b, t, hit, ids, best_row, best_z, px, py
 
 
 def _unband(a, height: int, width: int, tile_h: int):
@@ -280,7 +282,7 @@ def shade_windows_reference(win: Windows, records, *, height: int,
                      device=dev)
     color = torch.zeros((bsz, n_bands, band_px, 3), device=dev)
     bary = torch.zeros_like(color)
-    for b, t, hit, ids, best_row, px, py in _band_winners(
+    for b, t, hit, ids, best_row, _, px, py in _band_winners(
             win, height, width, tile_h, n_cols, n_faces):
         rec = records[b, :17, best_row]                # (17, band_px)
         qx = px - rec[15]
@@ -311,7 +313,7 @@ def select_windows_reference(win: Windows, records, *, height: int,
                      device=dev)
     row = torch.full_like(tri, -1)
     sel = torch.zeros((bsz, n_bands, band_px, _SEL), device=dev)
-    for b, t, hit, ids, best_row, _, _ in _band_winners(
+    for b, t, hit, ids, best_row, _, _, _ in _band_winners(
             win, height, width, tile_h, n_cols, n_faces):
         tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
         row[b, t] = torch.where(hit, best_row, -1).to(torch.int32)
@@ -322,12 +324,32 @@ def select_windows_reference(win: Windows, records, *, height: int,
     return tri, row, sel.permute(0, 3, 1, 2).contiguous()
 
 
+def pos_windows_reference(win: Windows, *, height: int, width: int,
+                          tile_h: int, n_cols: int, n_faces: int):
+    """Plain PyTorch version of K4, on the same inputs: the plain z-test
+    (_band_winners), then the winner's id, depth and raster row."""
+    bsz = win.setup.shape[0]
+    dev = win.setup.device
+    n_bands = (height + tile_h - 1) // tile_h
+    band_px = tile_h * col_width(width, n_cols) * n_cols
+    tri = torch.full((bsz, n_bands, band_px), -1, dtype=torch.int32,
+                     device=dev)
+    row = torch.full_like(tri, -1)
+    zbuf = torch.full((bsz, n_bands, band_px), float("inf"), device=dev)
+    for b, t, hit, ids, best_row, best_z, _, _ in _band_winners(
+            win, height, width, tile_h, n_cols, n_faces):
+        tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
+        zbuf[b, t] = torch.where(hit, best_z, float("inf"))
+        row[b, t] = torch.where(hit, best_row, -1).to(torch.int32)
+    return tuple(_unband(a, height, width, tile_h) for a in (tri, zbuf, row))
+
+
 def _check_grad_inputs(row, g, blo, bn, rows: int, tile_h: int):
     bsz, height, width = row.shape
     n_bands = (height + tile_h - 1) // tile_h
     if rows % _CHUNK:
         raise ValueError(f"rows = {rows} is not a multiple of {_CHUNK}")
-    _check(g.device, {
+    _build.check_tensors(g.device, {
         "row": (row, torch.int32, (bsz, height, width)),
         "g": (g, torch.float32, (bsz, _SEL, height, width)),
         "blo": (blo, torch.int32, (bsz, n_bands)),
@@ -345,14 +367,14 @@ def select_grad(row, g, blo, bn, *, rows: int, tile_h: int):
     Deterministic on the card (no float atomics). CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
     _check_grad_inputs(row, g, blo, bn, rows, tile_h)
-    if not _on_card(g.device):
+    if not _build.on_card(g.device):
         return select_grad_reference(row, g, blo, bn, rows=rows,
                                      tile_h=tile_h)
     bsz, height, width = row.shape
     d_rec = torch.empty((bsz, _FIELDS, rows), dtype=torch.float32,
                         device=g.device)
     if bsz:
-        _launch("select_grad", g.device, (row, g, blo, bn, d_rec),
+        _build.launch("select_grad", g.device, (row, g, blo, bn, d_rec),
                 (bsz, height, width, tile_h, blo.shape[1], rows))
     return d_rec
 
@@ -399,11 +421,16 @@ class RasterizeSelect(torch.autograd.Function):
         return d_rec, None, None, None, None, None, None
 
 
+def _row_order(faces, row_faces, row_id):
+    """The static raster row order, or the identity order when None."""
+    if row_faces is None:
+        return faces, torch.arange(faces.shape[0], device=faces.device)
+    return row_faces, row_id
+
+
 def _rasterize(core, records, verts_ndc, faces, height, width, tile_h,
                n_cols, row_faces, row_id):
-    if row_faces is None:
-        row_faces = faces
-        row_id = torch.arange(faces.shape[0], device=faces.device)
+    row_faces, row_id = _row_order(faces, row_faces, row_id)
     with torch.no_grad():
         win = band_windows(verts_ndc, row_faces, row_id, height, width,
                            tile_h, n_cols)
@@ -445,11 +472,102 @@ def rasterize_select(records, verts_ndc, faces, *, height: int, width: int,
     int32, sel (B,20,H,W) f32). Differentiable in `records` only:
     `verts_ndc` is detached (the binning and the z-test carry no
     gradient) and tri_id is frozen."""
-    if row_faces is None:
-        row_faces = faces
-        row_id = torch.arange(faces.shape[0], device=faces.device)
+    row_faces, row_id = _row_order(faces, row_faces, row_id)
     with torch.no_grad():
         win = band_windows(verts_ndc.detach(), row_faces, row_id, height,
                            width, tile_h, n_cols)
     return RasterizeSelect.apply(records.contiguous(), win, height, width,
                                  tile_h, n_cols, faces.shape[0])
+
+
+def _positions(verts_ndc, faces, height, width, tile_h, n_cols,
+               cull_backfaces, row_faces, row_id):
+    """Binning over the row order (identity when None), then K4: the
+    windows and K4's (tri_id, zbuf, row)."""
+    row_faces, row_id = _row_order(faces, row_faces, row_id)
+    win = band_windows(verts_ndc, row_faces, row_id, height, width, tile_h,
+                       n_cols, cull_backfaces)
+    return (win, *pos_windows(win, height=height, width=width,
+                              tile_h=tile_h, n_cols=n_cols,
+                              n_faces=faces.shape[0]))
+
+
+@torch.no_grad()
+def rasterize_positions(verts_ndc, faces, *, height: int, width: int,
+                        tile_h: int = 2, n_cols: int = 1,
+                        cull_backfaces: bool = False, row_faces=None,
+                        row_id=None):
+    """Batched hard-visibility pass (twin of the reference's
+    rasterize_positions): binning, then K4.
+
+    verts_ndc (B, N, 3), faces (F, 3); row_faces/row_id the static raster
+    row order (identity when None). Returns (tri_id (B,H,W) int32
+    winning face index in ORIGINAL face order (-1 = background), setup
+    (B, 16, rows) f32 in raster row order, zbuf (B,H,W) f32 (+inf on
+    background), (blo, bn) the band union chunk windows). No
+    gradients."""
+    win, tri_id, zbuf, _ = _positions(verts_ndc, faces, height, width,
+                                      tile_h, n_cols, cull_backfaces,
+                                      row_faces, row_id)
+    return tri_id, win.setup, zbuf, (win.blo, win.bn)
+
+
+def decode_bary(setup, row, height: int, width: int):
+    """Barycentrics (B,H,W,3) of each pixel's winner from its setup row
+    (row (B,H,W) int32, -1 = background -> 0): the winner's anchored w
+    forms at the pixel center, qx = (j + 0.5) - x0, qy = (i + 0.5) - y0,
+    w0 = wa0*qx + wb0*qy + wc0, w1 likewise, w2 = 1 - w0 - w1, in the
+    reference decode's float order."""
+    bsz = row.shape[0]
+    dev = setup.device
+    idx = row.clamp(min=0).to(torch.int64).reshape(bsz, 1, -1)
+    f = torch.gather(setup[:, :11], 2, idx.expand(bsz, 11, idx.shape[2]))
+    f = f.reshape(bsz, 11, height, width)
+    px = torch.arange(width, device=dev, dtype=torch.float32) + 0.5
+    py = (torch.arange(height, device=dev, dtype=torch.float32)
+          + 0.5)[:, None]
+    qx = px - f[:, 9]
+    qy = py - f[:, 10]
+    w0 = f[:, 0] * qx + f[:, 1] * qy + f[:, 2]
+    w1 = f[:, 3] * qx + f[:, 4] * qy + f[:, 5]
+    hit = row >= 0
+    return torch.stack([torch.where(hit, v, 0.0)
+                        for v in (w0, w1, 1.0 - w0 - w1)], dim=-1)
+
+
+@torch.no_grad()
+def rasterize_batch(verts_ndc, faces, *, height: int, width: int, cfg=None,
+                    tile_h: int = 2, n_cols: int = 1,
+                    cull_backfaces: bool = False, row_faces=None,
+                    row_id=None):
+    """The full SURVEY.md §9.5 contract, batched: (tri_id (B,H,W) int32,
+    bary (B,H,W,3) f32, zbuf (B,H,W) f32), zero bary and +inf zbuf on
+    background. cfg, when given, sets tile_h. No gradients.
+
+    One K4 launch (pos_windows), then an elementwise decode: zbuf is
+    K4's winning depth (za*qx + zb*qy + z0 in the z-test's own order)
+    and the barycentrics come from the winner's setup row (decode_bary).
+    The reference routes this contract through its select kernel with a
+    48-row bf16 contract record (_pack_contract_records, _split3),
+    because on the TPU its pos pass relaid each band in-kernel and its
+    decode needed a per-pixel row gather that runs at about one element
+    a cycle. Neither holds here: a pixel's winner row is a plain gather,
+    and K4 writes 12 bytes a pixel against the select's 88. The bf16
+    split only carried the f32 fields exactly through the TPU's bf16
+    matrix unit, so it is not ported; the values are the same."""
+    if cfg is not None:
+        tile_h = cfg.tile_h
+    win, tri_id, zbuf, row = _positions(verts_ndc, faces, height, width,
+                                        tile_h, n_cols, cull_backfaces,
+                                        row_faces, row_id)
+    return tri_id, decode_bary(win.setup, row, height, width), zbuf
+
+
+def rasterize(verts_ndc, faces, *, height: int, width: int, tile_h: int = 2,
+              cull_backfaces: bool = False):
+    """Single-mesh wrapper of rasterize_batch: verts_ndc (N, 3) ->
+    (tri_id (H,W), bary (H,W,3), zbuf (H,W))."""
+    tri_id, bary, zbuf = rasterize_batch(
+        verts_ndc[None], faces, height=height, width=width, tile_h=tile_h,
+        cull_backfaces=cull_backfaces)
+    return tri_id[0], bary[0], zbuf[0]

@@ -6,20 +6,24 @@ without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Bars: tri_id exactly equal to the plain version; for K1 color and bary
+Bars: tri_id exactly equal to the plain version; for K4 depth and
+winner row exactly equal too, and K6 bit for bit (both keep the plain
+version's float32 order); for K1 color and bary
 within 1e-6 (the kernel keeps the plain version's float32 operation
 order and is built with -fmad=false); for K2 the winner row and the
 selected fields exactly equal (a copy of record values); for K3 within
 1e-5 x max |ref| (the plain version's index_add_ sums with atomics in
 another order on the card) and bitwise equal over two launches. The
 float32 pipeline and training step on the card agree with the same ones
-on the CPU to the CPU test suite's bars.
+on the CPU to the CPU test suite's bars, and the contract path on the
+card meets the CPU suite's bars against the oracle.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from facerecon_tpu_torch import oracle
 from facerecon_tpu_torch.config import tiny_config
 from facerecon_tpu_torch.data.synthetic import sample_coeffs
 from facerecon_tpu_torch.ops import _build
@@ -103,11 +107,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         R.shade_windows(win, rec.cpu(), **kw)
     with pytest.raises(ValueError):
         R.shade_windows(win, rec.to(torch.bfloat16), **kw)
-    # one block holds tile_h * col_width pixels: at most 1024 threads
+    # one block holds tile_h * col_width pixels: at most 1024 threads; the
+    # plain version on the CPU takes the same band
     tall = R.band_windows(vndc, faces, rid, s, s, 64, 1)
+    tkw = dict(height=s, width=s, tile_h=64, n_cols=1, n_faces=2)
     with pytest.raises(ValueError, match="1024"):
-        R.shade_windows(tall, rec, height=s, width=s, tile_h=64, n_cols=1,
-                        n_faces=2)
+        R.shade_windows(tall, rec, **tkw)
+    with pytest.raises(ValueError, match="1024"):
+        R.pos_windows(tall, **tkw)
+    tid, _, _ = R.pos_windows(R.Windows(*(t.cpu() for t in tall)), **tkw)
+    assert tid.shape == (1, s, s) and not bool((tid >= 0).any())
 
 
 def test_reconstruct_on_card_matches_cpu(card):
@@ -178,6 +187,73 @@ def test_select_wrappers_reject_what_the_kernels_do_not_take(card):
         R.select_grad(row.cpu(), g, win.blo, win.bn, **gkw)
 
 
+@pytest.mark.parametrize("order", ["raster_rows", "shuffled"])
+def test_pos_kernel_matches_plain_version(card, order):
+    _, win, _, kw = _kernel_inputs(card, order)
+    before = _build.LAUNCHES["raster_pos"]
+    got = R.pos_windows(win, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["raster_pos"] == before + 1
+    ref = R.pos_windows_reference(win, **kw)
+    assert float((ref[0] >= 0).float().mean()) > 0.1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    # K4's winners are K2's
+    tri_id, row, _ = R.select_windows_reference(
+        win, torch.zeros((win.setup.shape[0], 24, win.setup.shape[2]),
+                         device=card), **kw)
+    assert torch.equal(got[0], tri_id) and torch.equal(got[2], row)
+
+
+def test_contract_path_on_card_matches_oracle(card):
+    """rasterize_batch on the card at 64 px (one K4 launch) against the
+    port's oracle: tri_id exactly equal, bary within 1e-5 and zbuf within
+    1e-5 relative (the CPU suite's bars)."""
+    cfg = tiny_config()
+    assets = synthetic_bfm(cfg, 0)
+    bfm = device_bfm(assets, card)
+    c = split_coeff(torch.as_tensor(
+        sample_coeffs(np.random.default_rng(7), cfg, 2), device=card), cfg)
+    vndc = coeffs_to_geometry(c, bfm, cfg).verts_ndc
+    s = cfg.image_size
+    before = _build.LAUNCHES["raster_pos"]
+    tri_id, bary, zbuf = R.rasterize_batch(
+        vndc, bfm.faces, height=s, width=s, cfg=cfg, n_cols=cfg.raster_cols,
+        row_faces=bfm.raster_rows, row_id=bfm.raster_row_id)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["raster_pos"] == before + 1
+    for b in range(2):
+        tid_o, bary_o, z_o = oracle.rasterize(vndc[b].cpu().numpy(),
+                                              assets.faces, s, s)
+        cov = tid_o >= 0
+        assert cov.mean() > 0.1
+        np.testing.assert_array_equal(tri_id[b].cpu().numpy(), tid_o)
+        np.testing.assert_allclose(bary[b].cpu().numpy(), bary_o, rtol=0,
+                                   atol=1e-5)
+        z = zbuf[b].cpu().numpy()
+        np.testing.assert_allclose(z[cov], z_o[cov], rtol=1e-5, atol=0)
+        assert np.all(np.isinf(z[~cov]))
+
+
+def test_ctz_walk_kernel_matches_plain_version(card):
+    from facerecon_tpu_torch.ops import probes
+    rng = np.random.default_rng(0)
+    setup = torch.as_tensor(rng.standard_normal(probes.SETUP_SHAPE),
+                            dtype=torch.float32, device=card)
+    words = np.array([0, 1 << 31, 0xFFFFFFFF, 1, 0x0F0F0F0F],
+                     np.uint32).view(np.int32)
+    mask = torch.as_tensor(np.concatenate(
+        [words, rng.integers(0, 2 ** 32, 59, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)]), device=card)
+    before = _build.LAUNCHES["ctz_walk"]
+    got = probes.ctz_walk(mask, setup)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ctz_walk"] == before + 1
+    ref = probes.ctz_walk_reference(mask, setup)
+    assert bool(torch.isfinite(ref).any())
+    assert torch.equal(got, ref)
+
+
 def test_train_step_on_card_matches_cpu(card):
     """One float32 training step (depth 18) on the card and on the CPU
     from the same weights: the reference's initialisation with a head
@@ -208,7 +284,7 @@ def test_train_step_on_card_matches_cpu(card):
                       pipe.model.named_parameters()}, launched))
     (p_card, g_card, l_card), (p_cpu, g_cpu, l_cpu) = runs
     assert l_card == {"raster_shade": 0, "raster_select": 1,
-                      "select_grad": 1}
+                      "select_grad": 1, "raster_pos": 0, "ctz_walk": 0}
     assert not any(l_cpu.values())
     assert p_cpu["photo"] > 0.01
     for k, v in p_cpu.items():

@@ -32,6 +32,14 @@ def test_port_sources_exist():
     assert all(p.exists() for p in SOURCES)
 
 
+@pytest.mark.parametrize("module", [
+    "oracle.py", "evaluate.py", "ops/probes.py", "utils/native_oracle.py",
+    "utils/metrics.py"])
+def test_contract_slice_modules_are_checked(module):
+    """The third slice's modules are among the sources checked here."""
+    assert ROOT / "facerecon_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
