@@ -12,9 +12,13 @@ Phases (any failed check raises, and the script exits non-zero):
      raster row order at the main path's batch and on a shuffled row
      order (windows beyond the 64-chunk mask); K3 (select_grad) on K2's
      winner rows with a cotangent drawn from a seed, twice (bitwise
-     deterministic); K4 (raster_pos) on both row orders as K1 and K2
-     (tri_id, depth and winner row exactly equal). Times each kernel and
-     its plain version.
+     deterministic), at batch 128 and again on the shuffled order's rows
+     plus a near-camera image (rows of more than 128 px over several
+     bands); K4 (raster_pos) on both row orders as K1 and K2 (tri_id,
+     depth and winner row exactly equal); K1, K2 and K4 on a wide band
+     (tile_h 8 x one 224-px column; K2 and K4 as sub-columns). Times each
+     kernel and its plain version; K1's bound counts the tests it makes
+     after its per-group cull.
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch (finite outputs, coverage, one K1 launch per
      call, agreement with the same float32 pipeline run on the CPU), a
@@ -68,7 +72,10 @@ TRAIN_BATCH = 128    # training main-path batch (bench.py's train mode)
 FIT_STEPS = 10       # loss-decrease check: steps on one batch of CHECK_BATCH
 CHECK_BATCH = 8      # shuffled-order kernel check and checked e2e batch
 H100_BYTES_S = 3.35e12   # HBM rate, H100 SXM data sheet
-H100_F32_S = 67e12       # float32 rate outside the tensor cores
+H100_F32_S = 67e12       # float32 rate outside the tensor cores, counting
+                         # a fused multiply-add as 2 ops; the kernels build
+                         # with -fmad=false, so each op runs alone at
+                         # about half this rate and the ops bound is low
 PAIR_FLOPS = 15      # f32 ops per pixel x triangle test (2 sub, 3 x 2 mul
                      # + 2 add, 1 add), comparisons not counted
 WALK_FLOPS = 7       # f32 ops per ctz_walk test (3 x (mul + add), 1 add)
@@ -83,6 +90,8 @@ FLOOR_BATCH = 128    # K5: benchmarks/floor_probe.py's defaults
 FLOOR_TILE_H = 2
 FLOOR_COLS = 4
 FLOOR_CHECK = 32     # K5 images held against the plain versions
+WIDE_TILE_H = 8      # wide band: tile_h 8 x one 224-px column
+WIDE_BATCH = 4
 WALK_PROGS = 2048    # K6: benchmarks/ctzloop_probe.py's shape
 WALK_LIVE = (4, 8, 16, 32)
 WALK_REPORTED = 8    # live bits of the K6 line in the kernels JSON
@@ -129,6 +138,83 @@ def _live_pairs(win, cfg) -> int:
     masked = int(_popcount(win.cmask).sum()) * 128 * col_px
     beyond = int(torch.clamp(win.bn.to(torch.int64) - 64, min=0).sum())
     return masked + beyond * 128 * col_px * cfg.raster_cols
+
+
+def _cull_keeps(f, x0, x1, y0, y1):
+    """csrc/raster_common.cuh cull_live in PyTorch float32, op for op:
+    False where the triangle (setup fields f[0..10]) covers no pixel
+    center of the rectangle [x0, x1] x [y0, y1] for certain."""
+    qxl, qxh = x0 - f[9], x1 - f[9]
+    qyl, qyh = y0 - f[10], y1 - f[10]
+
+    def ext(op, a, lo, hi):
+        return op(a * lo, a * hi)
+    hi0 = (ext(torch.maximum, f[0], qxl, qxh)
+           + ext(torch.maximum, f[1], qyl, qyh)) + f[2]
+    hi1 = (ext(torch.maximum, f[3], qxl, qxh)
+           + ext(torch.maximum, f[4], qyl, qyh)) + f[5]
+    lo0 = (ext(torch.minimum, f[0], qxl, qxh)
+           + ext(torch.minimum, f[1], qyl, qyh)) + f[2]
+    lo1 = (ext(torch.minimum, f[3], qxl, qxh)
+           + ext(torch.minimum, f[4], qyl, qyh)) + f[5]
+    return ~((hi0 < 0) | (hi1 < 0) | (lo0 + lo1 > 1))
+
+
+def _k1_tests(win, tile_h: int, n_cols: int, width: int) -> int:
+    """Pixel x triangle tests K1 makes on these windows: for each pixel
+    group of each column tile (csrc/raster_shade.cu: up to 32 micro-tiles
+    of 2 x 2 px), the triangles of the chunks its walk visits (the
+    column's masked chunks of the first 64, then every chunk beyond) that
+    the group's cull keeps, times the group's pixels inside the tile."""
+    from facerecon_tpu_torch.ops.rasterize import col_width
+    col_w = col_width(width, n_cols)
+    setup = win.setup
+    bsz, _, rows = setup.shape
+    n_bands = win.blo.shape[1]
+    dev = setup.device
+    mcols, mrows = (col_w + 1) // 2, (tile_h + 1) // 2
+    gc = min(mcols, 32)
+    gr = min(mrows, 32 // gc)
+    lane = torch.arange(32, device=dev, dtype=torch.int64)
+    words = win.cmask.view(bsz, n_bands, n_cols, 2).to(torch.int64)
+    bits = ((words[..., None] >> lane) & 1).reshape(
+        bsz, n_bands, n_cols, 64).bool()
+    j = torch.arange(128, device=dev)
+    t_px = torch.arange(n_bands, device=dev) * tile_h
+    c_px = torch.arange(n_cols, device=dev) * col_w
+    total = 0
+    for b0 in range(0, bsz, 4):
+        sl = slice(b0, b0 + 4)
+        lo, n = win.blo[sl].long(), win.bn[sl].long()
+        s = setup[sl]
+
+        def gather(r):     # fields 0..10 at rows r (S, ...) -> (11, S, ...)
+            flat = r.clamp(max=rows - 1).reshape(r.shape[0], -1)
+            return torch.stack([s[:, k].gather(1, flat).view(r.shape)
+                                for k in range(11)])
+        # the masked chunks k < 64, then each chunk k >= 64 of the band
+        fm = gather((lo[:, :, None, None] + torch.arange(64, device=dev)
+                     [:, None]) * 128 + j)                # (11,S,T,64,128)
+        beyond = [(gather((lo[:, :, None] + k) * 128 + j), n > k)
+                  for k in range(64, int(n.max()))]
+        for gy in range(0, mrows, gr):
+            for gx in range(0, mcols, gc):
+                x0 = (c_px + 2 * gx).float() + 0.5         # (C,)
+                y0 = (t_px + 2 * gy).float() + 0.5         # (T,)
+                x1 = (c_px + 2 * gx + 2 * gc - 1).float() + 0.5
+                y1 = (t_px + 2 * gy + 2 * gr - 1).float() + 0.5
+                px = min(2 * gc, col_w - 2 * gx) * min(2 * gr, tile_h - 2 * gy)
+                live = _cull_keeps(
+                    fm[:, :, :, None], x0[:, None, None],
+                    x1[:, None, None], y0[:, None, None, None],
+                    y1[:, None, None, None])            # (S,T,C,64,128)
+                total += int((live & bits[sl][..., None]).sum()) * px
+                for f, valid in beyond:
+                    live = _cull_keeps(f[:, :, :, None], x0[:, None],
+                                       x1[:, None], y0[:, None, None],
+                                       y1[:, None, None])   # (S,T,C,128)
+                    total += int((live & valid[:, :, None, None]).sum()) * px
+    return total
 
 
 def _inputs(cfg, bfm, coeff, order: str):
@@ -226,10 +312,19 @@ def _head(win, n: int):
     return type(win)(*(t[:n] for t in win))
 
 
+def _tests_made(name, win, cfg, width) -> int:
+    """Pixel x triangle tests a rasterizer makes on these windows: K1
+    culls triangles per pixel group (_k1_tests), K2 and K4 test every
+    triangle of the chunks their walk visits (_live_pairs)."""
+    if name == "raster_shade":
+        return _k1_tests(win, cfg.tile_h, cfg.raster_cols, width)
+    return _live_pairs(win, cfg)
+
+
 def _check_raster(name, main_batch, cfg, assets, rng):
     """A rasterizer kernel against its plain version on both row orders.
     Returns the kernel line's numbers at the main path's shapes and the
-    (windows, records, outputs) of the asset-order batch."""
+    (windows, records, outputs) of each order's batch."""
     from facerecon_tpu_torch.data.synthetic import sample_coeffs
     from facerecon_tpu_torch.ops.geometry import device_bfm
     kernel, plain, _, reads_records = _raster_kernels()[name]
@@ -237,7 +332,7 @@ def _check_raster(name, main_batch, cfg, assets, rng):
     s = cfg.image_size
     kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
               n_faces=assets.n_faces)
-    result, max_err, main = {}, 0.0, None
+    result, max_err, main = {}, 0.0, {}
     for order, batch in (("raster_rows", main_batch),
                          ("shuffled", CHECK_BATCH)):
         rec, win = _inputs(cfg, bfm, sample_coeffs(rng, cfg, batch), order)
@@ -259,67 +354,146 @@ def _check_raster(name, main_batch, cfg, assets, rng):
               f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
               f"max|err|={err:.3g} (tri_id exact)")
         if order == "raster_rows":
+            made = _tests_made(name, win, cfg, s)
+            print(f"{name}[{order}] tests made {made} of the mask walk's "
+                  f"{pairs} ({made / pairs:.4f})")
             inputs = (win.setup, win.blo, win.bn, win.cmask) + (
                 (rec,) if reads_records else ())
             bound_ms, bound_by = _bound(_nbytes(*inputs, *got),
-                                        pairs * PAIR_FLOPS, name)
+                                        made * PAIR_FLOPS, name)
             result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
-            main = (win, rec, got)
-        else:
-            del rec, win, got, ref
+        main[order] = (win, rec, got)
+        del ref
     del bfm
     torch.cuda.empty_cache()
     return dict(result, max_abs_err=max_err), main
 
 
-def check_select_grad(cfg, main):
-    """K3 against its plain version on K2's winner rows (batch 128, asset
-    order) with a cotangent drawn from a seed: max |diff| <= 1e-5 x max
-    |ref|, and two launches bitwise equal. library_ms is one index_add_
-    of the same sums (the plain version's core)."""
+def _select_grad_once(row, blo, bn, rows, tile_h, where, seed):
+    """K3 against its plain version on these winner rows with a cotangent
+    drawn from a seed: max |diff| <= 1e-5 x max |ref|, two launches
+    bitwise equal, fields 17..23 zero; then its time, the plain
+    version's, one index_add_ of the same sums (the plain version's
+    core) and the bound. Returns the kernel line's numbers."""
     from facerecon_tpu_torch.ops import rasterize as R
-    win, rec, (_, row, _) = main
     bsz, height, width = row.shape
-    rows = rec.shape[2]
     g = torch.randn((bsz, R._SEL, height, width), device=DEVICE,
-                    generator=torch.Generator(DEVICE).manual_seed(5))
-    kw = dict(rows=rows, tile_h=cfg.tile_h)
-    got = R.select_grad(row, g, win.blo, win.bn, **kw)
-    again = R.select_grad(row, g, win.blo, win.bn, **kw)
+                    generator=torch.Generator(DEVICE).manual_seed(seed))
+    kw = dict(rows=rows, tile_h=tile_h)
+    got = R.select_grad(row, g, blo, bn, **kw)
+    again = R.select_grad(row, g, blo, bn, **kw)
     torch.cuda.synchronize()
-    ref = R.select_grad_reference(row, g, win.blo, win.bn, **kw)
+    ref = R.select_grad_reference(row, g, blo, bn, **kw)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError("select_grad is not deterministic: two "
-                             "launches differ")
+        raise AssertionError(f"select_grad is not deterministic: two "
+                             f"launches differ ({where})")
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    if not (scale > 0 and err <= 1e-5 * scale):
+    if not (scale > 0 and err <= 1e-5 * scale and not got[:, 17:].any()):
         raise AssertionError(f"select_grad differs from the plain version "
-                             f"by {err} (max |ref| {scale})")
-    ms = _time_ms(lambda: R.select_grad(row, g, win.blo, win.bn, **kw),
-                  reps=20)
+                             f"by {err} (max |ref| {scale}; {where})")
+    ms = _time_ms(lambda: R.select_grad(row, g, blo, bn, **kw), reps=20)
     plain_ms = _time_ms(lambda: R.select_grad_reference(
-        row, g, win.blo, win.bn, **kw), reps=1, warmup=0)
+        row, g, blo, bn, **kw), reps=1, warmup=0)
     hit = row >= 0
     src = g[:, :R._GRAD].permute(0, 2, 3, 1)[hit].contiguous()
     dst = (row.to(torch.int64) + torch.arange(
         bsz, device=DEVICE)[:, None, None] * rows)[hit]
     acc = torch.zeros((bsz * rows, R._GRAD), device=DEVICE)
     library_ms = _time_ms(lambda: acc.index_add_(0, dst, src), reps=20)
+    # the least K3 can take for its (B, 24, rows) output: a zero fill of it
+    fill_ms = _time_ms(got.zero_, reps=20)
     # the cotangent is needed only at covered pixels: a background pixel
     # has no winner row and its g is never read
     n_hit = int(hit.sum())
     bound_ms, bound_by = _bound(
-        _nbytes(row, win.blo, win.bn, got) + n_hit * R._GRAD * 4,
-        n_hit * R._GRAD, "select_grad")
-    print(f"select_grad batch={bsz} rows={rows} covered px={n_hit} "
-          f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms index_add_="
-          f"{library_ms:.4f} ms max|err|={err:.3g} (max|ref| {scale:.3g}; "
-          f"two launches bitwise equal)")
+        _nbytes(row, blo, bn, got) + n_hit * R._GRAD * 4,
+        n_hit * R._GRAD, f"select_grad ({where})")
+    print(f"select_grad [{where}] batch={bsz} rows={rows} covered "
+          f"px={n_hit} kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
+          f"index_add_={library_ms:.4f} ms output zero fill={fill_ms:.4f} "
+          f"ms bound={bound_ms:.4f} ms "
+          f"max|err|={err:.3g} (max|ref| {scale:.3g}; two launches "
+          f"bitwise equal)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
+
+
+def check_select_grad(cfg, assets, main):
+    """K3 at batch 128 on K2's asset-order winner rows (the kernel line's
+    numbers), then on K2's shuffled-order winner rows at batch 8 plus one
+    image 1 from the camera (translation z = 9), whose winner rows span
+    several bands and some hold more than 128 pixels (the sum pass's
+    long rows)."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    win, rec, (_, row, _) = main["raster_rows"]
+    rows = rec.shape[2]
+    result = _select_grad_once(row, win.blo, win.bn, rows, cfg.tile_h,
+                               "asset order", 5)
+    del win, rec, row
+    win, rec, (_, row, _) = main["shuffled"]
+    bfm = device_bfm(assets, DEVICE)
+    coeff = sample_coeffs(np.random.default_rng(9), cfg, 1)
+    coeff[:, -1] = 9.0
+    nrec, nwin = _inputs(cfg, bfm, coeff, "shuffled")
+    s = cfg.image_size
+    _, nrow, _ = R.select_windows(nwin, nrec, height=s, width=s,
+                                  tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+                                  n_faces=assets.n_faces)
+    r = nrow[0][nrow[0] >= 0].to(torch.int64)
+    top = int(torch.bincount(r).argmax())
+    ys = torch.nonzero(nrow[0] == top)[:, 0]
+    longest = int((nrow[0] == top).sum())
+    bands = int(ys.max()) // cfg.tile_h - int(ys.min()) // cfg.tile_h + 1
+    print(f"select_grad near-camera image: its longest winner row has "
+          f"{longest} px over {bands} bands")
+    if not (longest > 128 and bands > 1):
+        raise AssertionError("the near-camera image has no winner row of "
+                             "more than 128 px over several bands")
+    both = torch.cat([row, nrow])
+    blo, bn = torch.cat([win.blo, nwin.blo]), torch.cat([win.bn, nwin.bn])
+    _select_grad_once(both, blo, bn, rows, cfg.tile_h,
+                      "shuffled order + near camera", 6)
+    del bfm
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_wide_band(cfg, assets):
+    """K1, K2 and K4 on a band wider than one block of 1024 threads:
+    tile_h 8 with one 224-px column (benchmarks/raster_bench.py's
+    default), asset order, batch WIDE_BATCH. K1 takes it as it is, K2 and
+    K4 as 2 sub-columns of 112 px; each is held against its plain
+    version (tri_id exact; K1 color/bary within 1e-6, K2 and K4 exact).
+    K1 is timed there."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    wcfg = dataclasses.replace(cfg, tile_h=WIDE_TILE_H, raster_cols=1)
+    bfm = device_bfm(assets, DEVICE)
+    rec, win = _inputs(wcfg, bfm, sample_coeffs(
+        np.random.default_rng(4), wcfg, WIDE_BATCH), "raster_rows")
+    s = cfg.image_size
+    kw = dict(height=s, width=s, tile_h=WIDE_TILE_H, n_cols=1,
+              n_faces=assets.n_faces)
+    for name, (kernel, plain, _, _) in _raster_kernels().items():
+        got = kernel(win, rec, **kw)
+        torch.cuda.synchronize()
+        err = _hold(name, got, plain(win, rec, **kw),
+                    f"wide band, tile_h {WIDE_TILE_H} x one {s}-px column")
+        print(f"wide band {name}: batch {WIDE_BATCH} tile_h {WIDE_TILE_H} x "
+              f"one {s}-px column equal to the plain version (max|err| "
+              f"{err:.3g})")
+    kernel = _raster_kernels()["raster_shade"][0]
+    ms = _time_ms(lambda: kernel(win, rec, **kw), reps=20)
+    made = _k1_tests(win, WIDE_TILE_H, 1, s)
+    print(f"wide band raster_shade: {ms:.4f} ms (batch {WIDE_BATCH}, "
+          f"{made} tests made, mask walk {_live_pairs(win, wcfg)})")
+    del bfm, rec, win
+    torch.cuda.empty_cache()
 
 
 def _depth_f64(vndc, faces, ids, px, py, size: int):
@@ -523,8 +697,8 @@ def check_floor(cfg, assets):
               n_faces=assets.n_faces)
     live = int(_popcount(win.cmask).sum())
     added = win.cmask.numel() * 32 - live    # chunks the saturated masks add
-    n_ops = _live_pairs(win, fcfg) * PAIR_FLOPS
     for name, (kernel, plain, _, reads_records) in _raster_kernels().items():
+        n_ops = _tests_made(name, win, fcfg, s) * PAIR_FLOPS
         got = kernel(win, rec, **kw)
         torch.cuda.synchronize()
         err = _hold(name, tuple(t[:FLOOR_CHECK] for t in got),
@@ -911,11 +1085,12 @@ def main() -> int:
                                               assets, rng)[0]}
     measured["raster_select"], main_select = _check_raster(
         "raster_select", TRAIN_BATCH, cfg, assets, rng)
-    measured["select_grad"] = check_select_grad(cfg, main_select)
+    measured["select_grad"] = check_select_grad(cfg, assets, main_select)
     del main_select
     torch.cuda.empty_cache()
     measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
                                            rng)[0]
+    check_wide_band(cfg, assets)
     launches = check_end_to_end(cfg, assets, rng)
     train_launches = check_training(cfg, assets)
     contract_launches = check_contract(cfg, assets)

@@ -13,13 +13,17 @@ wrapper that launches it on CUDA tensors, runs its plain PyTorch version
 (`*_reference`, the same function) on CPU tensors, and counts launches in
 `_build.LAUNCHES`:
   - `shade_windows` -> `csrc/raster_shade.cu` (K1, inference: z-test +
-    in-kernel shading); `rasterize_shaded` chains binning and K1;
+    in-kernel shading; a micro-tiled z-test that takes a band of any
+    size); `rasterize_shaded` chains binning and K1;
   - `select_windows` -> `csrc/raster_select.cu` (K2, training forward:
     z-test + the winner's record fields and raster row);
   - `select_grad` -> `csrc/select_grad.cu` (K3, K2's adjoint: per raster
-    row, the sum of its pixels' cotangent);
+    row, the sum of its pixels' cotangent, by a counting sort of the
+    winner rows);
   - `pos_windows` -> `csrc/raster_pos.cu` (K4, the z-test alone: winner
     face id, depth and raster row).
+K2 and K4 run one thread a pixel of a column tile; a tile wider than
+1024 pixels launches as sub-columns (`_raster_ints`).
 `RasterizeSelect` is the autograd Function over K2 and K3, and
 `rasterize_select` chains binning and it. `rasterize_positions` chains
 binning and K4, and `rasterize_batch` (the §9.5 (tri_id, bary, zbuf)
@@ -108,18 +112,34 @@ def _check_inputs(win: Windows, records, height, width, tile_h, n_cols):
     _build.check_tensors(win.setup.device, want)
 
 
-def _raster_ints(win: Windows, height, width, tile_h, n_cols, n_faces):
-    """The raster kernels' int arguments, after the block-size check: the
-    kernels run one thread a pixel of a band's column tile, so a tile of
-    more than 1024 pixels is refused here, on the launch path only (the
-    plain versions take any band)."""
+def _raster_ints(win: Windows, height, width, tile_h, n_cols, n_faces,
+                 split: bool = True):
+    """The raster kernels' column masks and int arguments.
+
+    K2 and K4 run one thread a pixel of a band's column tile, at most
+    1024 threads a block. With `split`, a wider tile launches as k
+    sub-columns of col_width / k pixels (the smallest k that divides the
+    width and fits a block), each with its parent column's two mask
+    words: a mask only prunes chunks that cover none of the column's
+    pixels, so it holds for any part of the column, and the (depth, id)
+    minimum does not depend on the order of the chunks tested. Only a
+    band taller than 1024 rows of an 8-px sub-column is refused. K1 takes
+    any tile (split=False). The plain versions take any band."""
     col_w = col_width(width, n_cols)
-    if tile_h * col_w > 1024:
-        raise ValueError(f"tile_h * col_width = {tile_h * col_w} pixels "
-                         "exceeds one block of 1024 threads")
     bsz, _, rows = win.setup.shape
-    return (bsz, height, width, tile_h, n_cols, col_w,
-            (height + tile_h - 1) // tile_h, rows, n_faces)
+    n_bands = (height + tile_h - 1) // tile_h
+    cmask = win.cmask
+    if split and tile_h * col_w > 1024:
+        if tile_h * 8 > 1024:
+            raise ValueError(f"tile_h * 8 = {tile_h * 8} pixels exceeds one "
+                             "block of 1024 threads")
+        k = next(k for k in range(2, col_w + 1)
+                 if col_w % k == 0 and tile_h * (col_w // k) <= 1024)
+        cmask = (cmask.view(bsz, n_bands, n_cols, _MWORDS)
+                 .repeat_interleave(k, 2).reshape(bsz, -1))
+        n_cols, col_w = n_cols * k, col_w // k
+    return cmask, (bsz, height, width, tile_h, n_cols, col_w, n_bands, rows,
+                   n_faces)
 
 
 def shade_windows(win: Windows, records, *, height: int, width: int,
@@ -141,10 +161,11 @@ def shade_windows(win: Windows, records, *, height: int, width: int,
     color = torch.empty((bsz, height, width, 3), dtype=torch.float32,
                         device=dev)
     bary = torch.empty_like(color)
-    ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
+    cmask, ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces,
+                               split=False)
     if bsz:
         _build.launch("raster_shade", dev, (win.setup, records, win.blo,
-                                            win.bn, win.cmask, tri_id, color,
+                                            win.bn, cmask, tri_id, color,
                                             bary), ints)
     return tri_id, color, bary
 
@@ -169,10 +190,10 @@ def select_windows(win: Windows, records, *, height: int, width: int,
     row = torch.empty_like(tri_id)
     sel = torch.empty((bsz, _SEL, height, width), dtype=torch.float32,
                       device=dev)
-    ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
+    cmask, ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
     if bsz:
         _build.launch("raster_select", dev, (win.setup, records, win.blo,
-                                             win.bn, win.cmask, tri_id, row,
+                                             win.bn, cmask, tri_id, row,
                                              sel), ints)
     return tri_id, row, sel
 
@@ -195,10 +216,10 @@ def pos_windows(win: Windows, *, height: int, width: int, tile_h: int,
     tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
     zbuf = torch.empty((bsz, height, width), dtype=torch.float32, device=dev)
     row = torch.empty_like(tri_id)
-    ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
+    cmask, ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
     if bsz:
         _build.launch("raster_pos", dev, (win.setup, win.blo, win.bn,
-                                          win.cmask, tri_id, zbuf, row), ints)
+                                          cmask, tri_id, zbuf, row), ints)
     return tri_id, zbuf, row
 
 
@@ -362,20 +383,27 @@ def select_grad(row, g, blo, bn, *, rows: int, tile_h: int):
 
     row (B,H,W) int32 winner raster rows (-1 = background), g (B,20,H,W)
     f32 cotangent of the select's fields, blo/bn the forward's band
-    windows. Returns d_rec (B, 24, rows) f32: per raster row, the sum of
-    its pixels' cotangent for fields 0..16, zero for fields 17..23.
-    Deterministic on the card (no float atomics). CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    windows (checked, unused: a counting sort needs no window). Returns
+    d_rec (B, 24, rows) f32: per raster row, the sum of its pixels'
+    cotangent for fields 0..16 in ascending pixel order, zero for fields
+    17..23. Deterministic on the card (int atomics only). CPU tensors
+    take the plain version; CUDA tensors launch the kernel, with its
+    scratch: per-row offsets (B, rows) and two (B, H*W) pixel lists."""
     _check_grad_inputs(row, g, blo, bn, rows, tile_h)
     if not _build.on_card(g.device):
         return select_grad_reference(row, g, blo, bn, rows=rows,
                                      tile_h=tile_h)
     bsz, height, width = row.shape
+    dev = g.device
     d_rec = torch.empty((bsz, _FIELDS, rows), dtype=torch.float32,
-                        device=g.device)
+                        device=dev)
+    offsets = torch.empty((bsz, rows), dtype=torch.int32, device=dev)
+    pixels = torch.empty((2, bsz, height * width), dtype=torch.int32,
+                         device=dev)
     if bsz:
-        _build.launch("select_grad", g.device, (row, g, blo, bn, d_rec),
-                (bsz, height, width, tile_h, blo.shape[1], rows))
+        _build.launch("select_grad", dev,
+                      (row, g, d_rec, offsets, pixels[0], pixels[1]),
+                      (bsz, height * width, rows))
     return d_rec
 
 

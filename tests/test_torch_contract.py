@@ -219,16 +219,104 @@ def test_native_oracle_matches_numpy_oracle(cfg, assets):
         np.testing.assert_array_equal(a, b)
 
 
-def test_wide_band_launch_is_refused(cfg):
-    """A band wider than one block of 1024 threads (tile_h 8 x one
-    224-px column, as benchmarks/raster_bench.py's default makes) is
-    refused on the launch path: the kernels run one thread a pixel. The
-    check (_raster_ints) runs before every launch and needs no card."""
-    vndc = torch.zeros((1, 4, 3))
-    faces = torch.tensor([[0, 1, 2], [0, 2, 3]])
-    win = TR.band_windows(vndc, faces, torch.arange(2), 224, 224, 8, 1)
-    with pytest.raises(ValueError, match="1024"):
-        TR._raster_ints(win, 224, 224, 8, 1, 2)
+@pytest.mark.parametrize("case", ["split", "refused"])
+def test_wide_band_launch_is_refused(cfg, assets, case):
+    """The launch path of K2 and K4 (_raster_ints, before every launch,
+    no card needed). A band wider than one block of 1024 threads (tile_h
+    8 x one 224-px column, as benchmarks/raster_bench.py's default makes)
+    launches as 2 sub-columns of 112 px, each with its parent column's
+    mask words; K1 (split=False) takes it as it is. Only a band taller
+    than 1024 rows of an 8-px sub-column is still refused."""
+    vndc = torch.from_numpy(np.array(_verts(cfg, assets, 12, batch=1)))
+    faces = torch.from_numpy(assets.faces.astype(np.int64))
+    rid = torch.arange(assets.n_faces)
+    if case == "refused":
+        win = TR.band_windows(vndc, faces, rid, 224, 224, 136, 1)
+        with pytest.raises(ValueError, match="1024"):
+            TR._raster_ints(win, 224, 224, 136, 1, assets.n_faces)
+        return
+    win = TR.band_windows(vndc, faces, rid, 224, 224, 8, 1)
+    assert win.cmask.any()
+    cmask, ints = TR._raster_ints(win, 224, 224, 8, 1, assets.n_faces)
+    bsz, height, width, tile_h, n_cols, col_w, n_bands = ints[:7]
+    assert (n_cols, col_w, tile_h * col_w, n_bands) == (2, 112, 896, 28)
+    sub = cmask.view(bsz, n_bands, n_cols, 2)
+    parent = win.cmask.view(bsz, n_bands, 1, 2)
+    assert torch.equal(sub, parent.expand(bsz, n_bands, n_cols, 2))
+    k1_mask, k1_ints = TR._raster_ints(win, 224, 224, 8, 1, assets.n_faces,
+                                       split=False)
+    assert k1_mask is win.cmask and k1_ints[4:6] == (1, 224)
+
+
+def _masked_walk_rows(win, cmask, height, width, tile_h, n_cols, col_w,
+                      n_faces):
+    """The winner raster row of every pixel (-1 where nothing covers) by
+    the kernels' walk: per (band, column), only the column's masked chunks
+    of the window's first 64 and every chunk beyond them, with
+    _band_winners' float ops and its (depth, id, lowest row) rule."""
+    setup = win.setup
+    bsz = setup.shape[0]
+    n_bands = (height + tile_h - 1) // tile_h
+    words = cmask.view(bsz, n_bands, n_cols, 2).to(torch.int64) & 0xFFFFFFFF
+    out = torch.full((bsz, n_bands * tile_h, n_cols * col_w), -1,
+                     dtype=torch.int64)
+    for b in range(bsz):
+        for t in range(n_bands):
+            lo, n = int(win.blo[b, t]), int(win.bn[b, t])
+            for c in range(n_cols):
+                chunks = [w * 32 + i for w in range(2) for i in range(32)
+                          if (int(words[b, t, c, w]) >> i) & 1]
+                chunks += list(range(64, n))
+                if not chunks:
+                    continue
+                r = torch.cat([torch.arange((lo + k) * 128,
+                                            (lo + k + 1) * 128)
+                               for k in chunks])
+                cf = setup[b][:, r]
+                ys, xs = torch.meshgrid(torch.arange(tile_h) + t * tile_h,
+                                        torch.arange(col_w) + c * col_w,
+                                        indexing="ij")
+                px = xs.reshape(-1).to(torch.float32) + 0.5
+                py = ys.reshape(-1).to(torch.float32) + 0.5
+                qx = px[:, None] - cf[9]
+                qy = py[:, None] - cf[10]
+                e0 = cf[0] * qx + cf[1] * qy + cf[2]
+                e1 = cf[3] * qx + cf[4] * qy + cf[5]
+                ez = cf[6] * qx + cf[7] * qy + cf[8]
+                cov = (e0 >= 0.0) & (e1 >= 0.0) & (e0 + e1 <= 1.0)
+                zm = torch.where(cov, ez, float("inf"))
+                zmin = zm.amin(dim=1)
+                at_min = cov & (zm == zmin[:, None])
+                idw = torch.where(at_min, cf[12], 3e38).amin(dim=1)
+                first = torch.argmax((at_min & (cf[12] == idw[:, None]))
+                                     .to(torch.uint8), dim=1)
+                ids = idw.to(torch.int64)
+                hit = (zmin < 3e37) & (ids >= 0) & (ids < n_faces)
+                out[b, t * tile_h:(t + 1) * tile_h,
+                    c * col_w:(c + 1) * col_w] = torch.where(
+                        hit, r[first], -1).view(tile_h, col_w)
+    return out[:, :height, :width]
+
+
+@pytest.mark.parametrize("case", ["raster_rows", "shuffled"])
+def test_split_masks_walk_finds_the_plain_winners(cfg, assets, case):
+    """A walk that honours the split column masks (tile_h 32 x one 64-px
+    column, split into 2 sub-columns of 32 px) finds the winners of the
+    plain version, which walks each band's whole window."""
+    _, rows, rid, _ = _order(cfg, assets, case)
+    vndc = torch.from_numpy(np.array(_verts(cfg, assets, 13, batch=2)))
+    s = cfg.image_size
+    win = TR.band_windows(vndc, torch.from_numpy(rows.astype(np.int64)),
+                          torch.from_numpy(rid.astype(np.int64)), s, s, 32, 1)
+    cmask, ints = TR._raster_ints(win, s, s, 32, 1, assets.n_faces)
+    n_cols, col_w = ints[4:6]
+    assert (n_cols, col_w) == (2, 32)
+    _, _, ref_row = TR.pos_windows_reference(
+        win, height=s, width=s, tile_h=32, n_cols=1, n_faces=assets.n_faces)
+    got = _masked_walk_rows(win, cmask, s, s, 32, n_cols, col_w,
+                            assets.n_faces)
+    assert (ref_row >= 0).float().mean() > 0.1
+    assert torch.equal(got, ref_row.to(torch.int64))
 
 
 def test_wide_band_on_cpu_matches_reference(cfg, assets):

@@ -19,6 +19,8 @@ on the CPU to the CPU test suite's bars, and the contract path on the
 card meets the CPU suite's bars against the oracle.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -49,15 +51,24 @@ def card():
     return torch.device("cuda")
 
 
-def _kernel_inputs(card, order, batch=3):
+def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
+                   tz=None, away=False):
     """Records and windows at tiny_config(n_vertices=6000): 11.7k faces,
-    so a shuffled order overflows the 64-chunk column masks."""
+    so a shuffled order overflows the 64-chunk column masks. tile_h and
+    n_cols override the config's bands; tz sets every face's depth
+    translation (9.0: 1 from the camera, rows of several hundred px);
+    away moves the last image's face out of frame."""
     cfg = tiny_config(n_vertices=6000)
+    cfg = dataclasses.replace(cfg, tile_h=tile_h or cfg.tile_h,
+                              raster_cols=n_cols or cfg.raster_cols)
     assets = synthetic_bfm(cfg, 0)
     bfm = device_bfm(assets, card)
-    c = split_coeff(torch.as_tensor(
-        sample_coeffs(np.random.default_rng(5), cfg, batch), device=card),
-        cfg)
+    coeff = sample_coeffs(np.random.default_rng(5), cfg, batch)
+    if tz is not None:
+        coeff[:, -1] = tz
+    if away:
+        coeff[-1, -3] = 100.0
+    c = split_coeff(torch.as_tensor(coeff, device=card), cfg)
     geom = coeffs_to_geometry(c, bfm, cfg)
     rad = illuminate(geom.texture, geom.normals, c.gamma)
     if order == "raster_rows":
@@ -92,6 +103,30 @@ def test_kernel_matches_plain_version(card, order):
         assert float((a - b).abs().max()) <= 1e-6
 
 
+def _hold_shade(win, rec, kw):
+    """K1 against its plain version: tri_id exactly equal, color and bary
+    within 1e-6."""
+    got = R.shade_windows(win, rec, **kw)
+    ref = R.shade_windows_reference(win, rec, **kw)
+    assert torch.equal(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        assert float((a - b).abs().max()) <= 1e-6
+    return ref
+
+
+def _hold_raster(win, rec, kw):
+    """K1, K2 and K4 on these windows against their plain versions (K2's
+    and K4's outputs exactly equal)."""
+    ref = _hold_shade(win, rec, kw)
+    for got, ref_k in ((R.select_windows(win, rec, **kw),
+                      R.select_windows_reference(win, rec, **kw)),
+                     (R.pos_windows(win, **kw),
+                      R.pos_windows_reference(win, **kw))):
+        for a, b in zip(got, ref_k):
+            assert torch.equal(a, b)
+    return ref
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     cfg = tiny_config()
     s = cfg.image_size
@@ -107,16 +142,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         R.shade_windows(win, rec.cpu(), **kw)
     with pytest.raises(ValueError):
         R.shade_windows(win, rec.to(torch.bfloat16), **kw)
-    # one block holds tile_h * col_width pixels: at most 1024 threads; the
-    # plain version on the CPU takes the same band
-    tall = R.band_windows(vndc, faces, rid, s, s, 64, 1)
-    tkw = dict(height=s, width=s, tile_h=64, n_cols=1, n_faces=2)
+    # a band of 64 x 64 px launches: K1 as it is, K2 and K4 as 4
+    # sub-columns of 16 px (1024 threads a block), each equal to its
+    # plain version
+    _, tall, trec, tkw = _kernel_inputs(card, "raster_rows", batch=2,
+                                        tile_h=64, n_cols=1)
+    ref = _hold_raster(tall, trec, tkw)
+    assert float((ref[0] >= 0).float().mean()) > 0.1
+    # only a band taller than 1024 rows of an 8-px sub-column is refused
+    # by K2 and K4; K1 takes it
+    _, taller, trec, tkw = _kernel_inputs(card, "raster_rows", batch=1,
+                                          tile_h=136, n_cols=1)
     with pytest.raises(ValueError, match="1024"):
-        R.shade_windows(tall, rec, **tkw)
+        R.select_windows(taller, trec, **tkw)
     with pytest.raises(ValueError, match="1024"):
-        R.pos_windows(tall, **tkw)
-    tid, _, _ = R.pos_windows(R.Windows(*(t.cpu() for t in tall)), **tkw)
-    assert tid.shape == (1, s, s) and not bool((tid >= 0).any())
+        R.pos_windows(taller, **tkw)
+    _hold_shade(taller, trec, tkw)
 
 
 def test_reconstruct_on_card_matches_cpu(card):
@@ -163,6 +204,42 @@ def test_select_grad_kernel_matches_plain_and_is_deterministic(card):
     again = R.select_grad(row, g, win.blo, win.bn, **gkw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["select_grad"] == before + 2
+    assert torch.equal(got, again)
+    ref = R.select_grad_reference(row, g, win.blo, win.bn, **gkw)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert not got[:, 17:].any()
+
+
+@pytest.mark.parametrize("case", ["ragged", "near", "empty", "shuffled"])
+def test_select_grad_kernel_on_general_shapes(card, case):
+    """K3 where its counting sort meets the general cases: tile_h 3 (the
+    height 64 is no multiple of it), a face 1 from the camera (a winner
+    row spans several bands and has more than 128 pixels, the sum pass's
+    long-row path), an image nothing covers, a shuffled face order. Each
+    within 1e-5 x max |ref| of the plain version and bitwise equal over
+    two launches."""
+    kwargs = dict(ragged=dict(tile_h=3), near=dict(tz=9.0),
+                  empty=dict(away=True), shuffled={})[case]
+    order = "shuffled" if case == "shuffled" else "raster_rows"
+    cfg, win, rec, kw = _kernel_inputs(card, order, **kwargs)
+    _, row, _ = R.select_windows(win, rec, **kw)
+    cover = (row >= 0).float().mean(dim=(1, 2))
+    if case == "empty":
+        assert float(cover[0]) > 0.1 and float(cover[-1]) == 0.0
+    if case == "near":
+        r = row[0][row[0] >= 0].to(torch.int64)
+        top = int(torch.bincount(r).argmax())
+        ys = torch.nonzero(row[0] == top)[:, 0]
+        assert int((row[0] == top).sum()) > 128
+        assert int(ys.max()) // cfg.tile_h > int(ys.min()) // cfg.tile_h
+    g = torch.randn((row.shape[0], 20, *row.shape[1:]), device=card,
+                    generator=torch.Generator(card).manual_seed(1))
+    gkw = dict(rows=rec.shape[2], tile_h=cfg.tile_h)
+    got = R.select_grad(row, g, win.blo, win.bn, **gkw)
+    again = R.select_grad(row, g, win.blo, win.bn, **gkw)
+    torch.cuda.synchronize()
     assert torch.equal(got, again)
     ref = R.select_grad_reference(row, g, win.blo, win.bn, **gkw)
     scale = float(ref.abs().max())

@@ -10,7 +10,9 @@ On the CPU the wrappers run the kernels' plain versions. Bars:
     2-part split keeps >= 16 significand bits);
   - the adjoint equal to the np.add.at scatter of the cotangent over the
     winning pixels within 1e-5, and to jax.grad of the reference within
-    1e-4 (its matrix-unit adjoint carries the cotangent at 16 bits);
+    1e-4 (its matrix-unit adjoint carries the cotangent at 16 bits); for
+    a near-camera face, whose rows sum ~100 pixels, within 2^-16 of each
+    sum of |cotangent| (the same 16-bit rounding, summed);
   - color, bary and skin rebuilt from the select within 1e-4 of the
     reference's _shade_from_sel and skin_mask_image (the reference rounds
     radiance and skin to its 16-bit split).
@@ -18,6 +20,8 @@ On the CPU the wrappers run the kernels' plain versions. Bars:
 The kernels themselves run only on a card; tests/test_torch_cuda.py holds
 them against these plain versions there.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -65,6 +69,10 @@ def _inputs(cfg, assets, batch, case="raster_rows", seed=7):
     coeff = make_coeff(cfg, np.random.default_rng(seed), batch=batch)
     if case == "roll45":
         coeff[:, cfg.coeff_split[2] + 2] = np.pi / 4
+    if case == "near":       # 1.3 from the camera: triangles of ~100s px
+        coeff[:, -1] = 8.5
+    if case == "empty":      # the last image's face far out of frame
+        coeff[-1, -3] = 100.0
     bfm = G.device_bfm(assets)
     c = split_coeff(jnp.asarray(coeff), cfg)
     geom = G.coeffs_to_geometry(c, bfm, cfg)
@@ -121,9 +129,31 @@ def test_select_matches_pallas_select(cfg, assets, case):
                                   tid[~bg])
 
 
-def test_select_adjoint_matches_scatter_and_jax(cfg, assets):
-    bfm, geom, _, rows, rid, rec = _inputs(cfg, assets, 2)
+def _check_adjoint_case(case, pos, tile_h):
+    """The winner rows make the case they are named for."""
+    cover = (pos >= 0).mean(axis=(1, 2))
+    if case == "empty":
+        assert cover[0] > 0.1 and cover[1] == 0
+        return
+    assert cover.min() > 0.1
+    if case == "near":
+        r = pos[0]
+        counts = np.bincount(r[r >= 0])
+        assert counts.max() > 32
+        ys = np.nonzero(r == counts.argmax())[0]
+        assert ys.max() // tile_h > ys.min() // tile_h
+
+
+@pytest.mark.parametrize("case", ["raster_rows", "ragged", "near", "empty"])
+def test_select_adjoint_matches_scatter_and_jax(cfg, assets, case):
+    """The adjoint on the asset order; with tile_h 3, so the height (64)
+    is no multiple of it; close to the camera, so a winner row's pixels
+    span several bands and some row has more than 32 (a long row of the
+    kernel's sum pass); and with an image that nothing covers."""
+    bfm, geom, _, rows, rid, rec = _inputs(cfg, assets, 2, case)
     h = w = cfg.image_size
+    if case == "ragged":
+        cfg = dataclasses.replace(cfg, tile_h=3)
     g17 = np.random.default_rng(5).standard_normal(
         (2, h, w, 17)).astype(np.float32)
 
@@ -151,6 +181,7 @@ def test_select_adjoint_matches_scatter_and_jax(cfg, assets):
     grad = grad.numpy()
 
     pos = row.numpy()
+    _check_adjoint_case(case, pos, cfg.tile_h)
     expect = np.zeros((2, rec.shape[2], 24), np.float32)
     b_i, i_i, j_i = np.nonzero(pos >= 0)
     gn = np.concatenate([g17, np.zeros((2, h, w, 7), np.float32)], -1)
@@ -159,7 +190,15 @@ def test_select_adjoint_matches_scatter_and_jax(cfg, assets):
     np.testing.assert_allclose(grad, expect.transpose(0, 2, 1), rtol=0,
                                atol=1e-5)
     assert np.all(grad[:, 17:] == 0.0)
-    np.testing.assert_allclose(grad, grad_jax, rtol=0, atol=1e-4)
+    if case != "near":
+        np.testing.assert_allclose(grad, grad_jax, rtol=0, atol=1e-4)
+        return
+    # rows of ~100 pixels: the reference's 16-bit cotangent errs by up to
+    # 2^-17 of each term, so its sum by up to 2^-17 of the sum of |terms|
+    mag = np.zeros_like(expect)
+    np.add.at(mag, (b_i, pos[b_i, i_i, j_i]), np.abs(gn[b_i, i_i, j_i]))
+    assert np.all(np.abs(grad - grad_jax)
+                  <= 2.0 ** -16 * mag.transpose(0, 2, 1) + 1e-6)
 
 
 def test_shade_from_sel_matches_reference(cfg, assets):
