@@ -16,9 +16,10 @@ Phases (any failed check raises, and the script exits non-zero):
      plus a near-camera image (rows of more than 128 px over several
      bands); K4 (raster_pos) on both row orders as K1 and K2 (tri_id,
      depth and winner row exactly equal); K1, K2 and K4 on a wide band
-     (tile_h 8 x one 224-px column; K2 and K4 as sub-columns). Times each
-     kernel and its plain version; K1's bound counts the tests it makes
-     after its per-group cull.
+     (tile_h 8 x one 224-px column), each held and timed there. Times each
+     kernel and its plain version; the bounds of K1, K2 and K4 count the
+     tests they make after their shared per-group cull and the bytes they
+     must read (the walked setup chunks, the winners' record sectors).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch (finite outputs, coverage, one K1 launch per
      call, agreement with the same float32 pipeline run on the CPU), a
@@ -140,41 +141,21 @@ def _live_pairs(win, cfg) -> int:
     return masked + beyond * 128 * col_px * cfg.raster_cols
 
 
-def _cull_keeps(f, x0, x1, y0, y1):
-    """csrc/raster_common.cuh cull_live in PyTorch float32, op for op:
-    False where the triangle (setup fields f[0..10]) covers no pixel
-    center of the rectangle [x0, x1] x [y0, y1] for certain."""
-    qxl, qxh = x0 - f[9], x1 - f[9]
-    qyl, qyh = y0 - f[10], y1 - f[10]
-
-    def ext(op, a, lo, hi):
-        return op(a * lo, a * hi)
-    hi0 = (ext(torch.maximum, f[0], qxl, qxh)
-           + ext(torch.maximum, f[1], qyl, qyh)) + f[2]
-    hi1 = (ext(torch.maximum, f[3], qxl, qxh)
-           + ext(torch.maximum, f[4], qyl, qyh)) + f[5]
-    lo0 = (ext(torch.minimum, f[0], qxl, qxh)
-           + ext(torch.minimum, f[1], qyl, qyh)) + f[2]
-    lo1 = (ext(torch.minimum, f[3], qxl, qxh)
-           + ext(torch.minimum, f[4], qyl, qyh)) + f[5]
-    return ~((hi0 < 0) | (hi1 < 0) | (lo0 + lo1 > 1))
-
-
-def _k1_tests(win, tile_h: int, n_cols: int, width: int) -> int:
-    """Pixel x triangle tests K1 makes on these windows: for each pixel
-    group of each column tile (csrc/raster_shade.cu: up to 32 micro-tiles
-    of 2 x 2 px), the triangles of the chunks its walk visits (the
-    column's masked chunks of the first 64, then every chunk beyond) that
-    the group's cull keeps, times the group's pixels inside the tile."""
-    from facerecon_tpu_torch.ops.rasterize import col_width
+def _tests_made(win, tile_h: int, n_cols: int, width: int) -> int:
+    """Pixel x triangle tests K1, K2 and K4 make on these windows: for
+    each pixel group of each column tile (ops/rasterize.pixel_group), the
+    triangles of the chunks its walk visits (the column's masked chunks
+    of the first 64, then every chunk beyond) that the group's cull keeps
+    (ops/rasterize.cull_keeps, the kernels' cull in float32), times the
+    group's pixels inside the tile."""
+    from facerecon_tpu_torch.ops.rasterize import (col_width, cull_keeps,
+                                                   pixel_group)
     col_w = col_width(width, n_cols)
+    gw, gh = pixel_group(tile_h, col_w)
     setup = win.setup
     bsz, _, rows = setup.shape
     n_bands = win.blo.shape[1]
     dev = setup.device
-    mcols, mrows = (col_w + 1) // 2, (tile_h + 1) // 2
-    gc = min(mcols, 32)
-    gr = min(mrows, 32 // gc)
     lane = torch.arange(32, device=dev, dtype=torch.int64)
     words = win.cmask.view(bsz, n_bands, n_cols, 2).to(torch.int64)
     bits = ((words[..., None] >> lane) & 1).reshape(
@@ -197,22 +178,22 @@ def _k1_tests(win, tile_h: int, n_cols: int, width: int) -> int:
                      [:, None]) * 128 + j)                # (11,S,T,64,128)
         beyond = [(gather((lo[:, :, None] + k) * 128 + j), n > k)
                   for k in range(64, int(n.max()))]
-        for gy in range(0, mrows, gr):
-            for gx in range(0, mcols, gc):
-                x0 = (c_px + 2 * gx).float() + 0.5         # (C,)
-                y0 = (t_px + 2 * gy).float() + 0.5         # (T,)
-                x1 = (c_px + 2 * gx + 2 * gc - 1).float() + 0.5
-                y1 = (t_px + 2 * gy + 2 * gr - 1).float() + 0.5
-                px = min(2 * gc, col_w - 2 * gx) * min(2 * gr, tile_h - 2 * gy)
-                live = _cull_keeps(
+        for gy in range(0, tile_h, gh):
+            for gx in range(0, col_w, gw):
+                x0 = (c_px + gx).float() + 0.5             # (C,)
+                y0 = (t_px + gy).float() + 0.5             # (T,)
+                x1 = (c_px + gx + gw - 1).float() + 0.5
+                y1 = (t_px + gy + gh - 1).float() + 0.5
+                px = min(gw, col_w - gx) * min(gh, tile_h - gy)
+                live = cull_keeps(
                     fm[:, :, :, None], x0[:, None, None],
                     x1[:, None, None], y0[:, None, None, None],
                     y1[:, None, None, None])            # (S,T,C,64,128)
                 total += int((live & bits[sl][..., None]).sum()) * px
                 for f, valid in beyond:
-                    live = _cull_keeps(f[:, :, :, None], x0[:, None],
-                                       x1[:, None], y0[:, None, None],
-                                       y1[:, None, None])   # (S,T,C,128)
+                    live = cull_keeps(f[:, :, :, None], x0[:, None],
+                                      x1[:, None], y0[:, None, None],
+                                      y1[:, None, None])    # (S,T,C,128)
                     total += int((live & valid[:, :, None, None]).sum()) * px
     return total
 
@@ -255,6 +236,44 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _raster_bytes(win, got, rec_fields: int, n_cols: int,
+                  n_faces: int) -> int:
+    """Bytes K1, K2 or K4 must move on these windows, each read once: the
+    12 staged setup fields (0..10 and the id) of the distinct chunks some
+    column tile's walk visits (its masked chunks of the first 64, then
+    every chunk beyond), blo, bn and cmask, the first rec_fields record
+    fields over the 32-byte sectors that hold a winner's row, and every
+    output."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    setup = win.setup
+    bsz, _, rows = setup.shape
+    n_chunks = rows // R._CHUNK
+    n_bands = win.blo.shape[1]
+    dev = setup.device
+    lane = torch.arange(32, device=dev, dtype=torch.int64)
+    words = win.cmask.view(bsz, n_bands, n_cols, R._MWORDS).to(torch.int64)
+    masked = ((words[..., None] >> lane) & 1).reshape(
+        bsz, n_bands, n_cols, 64).bool().any(dim=2)          # (B, T, 64)
+    k = torch.arange(max(64, int(win.bn.max())), device=dev)
+    walked = torch.nn.functional.pad(masked, (0, k.numel() - 64)) | (
+        (k >= 64) & (k < win.bn[..., None]))                 # (B, T, K)
+    chunk = torch.where(walked, (win.blo[..., None] + k).clamp(
+        max=n_chunks - 1), n_chunks).to(torch.int64)
+    seen = torch.zeros((bsz, n_chunks + 1), dtype=torch.int32, device=dev)
+    seen.scatter_(1, chunk.reshape(bsz, -1), 1)
+    n_bytes = int(seen[:, :n_chunks].sum()) * R._CHUNK * 12 * 4
+    if rec_fields:
+        # a winner's row: the setup row that carries its face id (slack
+        # rows carry id 0 and wc0 = -3e38)
+        won = torch.zeros((bsz, n_faces + 1), dtype=torch.bool, device=dev)
+        won.scatter_(1, (got[0].reshape(bsz, -1) + 1).to(torch.int64), True)
+        ids = setup[:, 12].to(torch.int64).clamp(0, n_faces - 1)
+        row_won = won[:, 1:].gather(1, ids) & (setup[:, 2] > -1e38)
+        sectors = int(row_won.view(bsz, rows // 8, 8).any(dim=2).sum())
+        n_bytes += sectors * 32 * rec_fields
+    return n_bytes + _nbytes(win.blo, win.bn, win.cmask, *got)
+
+
 def _compare_shade(got, ref, where):
     """K1's color and bary within 1e-6 of the plain version's."""
     err = max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))
@@ -278,22 +297,22 @@ def _compare_exact(name, fields):
 
 def _raster_kernels():
     """The rasterizer kernels: name -> (wrapper, plain version, compare of
-    the outputs after tri_id, whether the kernel reads the records). The
-    wrappers and plain versions all take (win, rec, **kw). K2's sel is a
-    copy of record values and K4 keeps the plain version's float32
-    order, so both are held exactly."""
+    the outputs after tri_id, the record fields its epilogue loads: K1
+    fields 0..16, K2 0..19, K4 none). The wrappers and plain versions all
+    take (win, rec, **kw). K2's sel is a copy of record values and K4
+    keeps the plain version's float32 order, so both are held exactly."""
     from facerecon_tpu_torch.ops import rasterize as R
     return {
         "raster_shade": (R.shade_windows, R.shade_windows_reference,
-                         _compare_shade, True),
+                         _compare_shade, R._GRAD),
         "raster_select": (R.select_windows, R.select_windows_reference,
                           _compare_exact("raster_select",
-                                         ((1, "row"), (2, "sel"))), True),
+                                         ((1, "row"), (2, "sel"))), R._SEL),
         "raster_pos": (lambda win, rec, **kw: R.pos_windows(win, **kw),
                        lambda win, rec, **kw: R.pos_windows_reference(
                            win, **kw),
                        _compare_exact("raster_pos",
-                                      ((1, "zbuf"), (2, "row"))), False),
+                                      ((1, "zbuf"), (2, "row"))), 0),
     }
 
 
@@ -312,22 +331,13 @@ def _head(win, n: int):
     return type(win)(*(t[:n] for t in win))
 
 
-def _tests_made(name, win, cfg, width) -> int:
-    """Pixel x triangle tests a rasterizer makes on these windows: K1
-    culls triangles per pixel group (_k1_tests), K2 and K4 test every
-    triangle of the chunks their walk visits (_live_pairs)."""
-    if name == "raster_shade":
-        return _k1_tests(win, cfg.tile_h, cfg.raster_cols, width)
-    return _live_pairs(win, cfg)
-
-
 def _check_raster(name, main_batch, cfg, assets, rng):
     """A rasterizer kernel against its plain version on both row orders.
     Returns the kernel line's numbers at the main path's shapes and the
     (windows, records, outputs) of each order's batch."""
     from facerecon_tpu_torch.data.synthetic import sample_coeffs
     from facerecon_tpu_torch.ops.geometry import device_bfm
-    kernel, plain, _, reads_records = _raster_kernels()[name]
+    kernel, plain, _, rec_fields = _raster_kernels()[name]
     bfm = device_bfm(assets, DEVICE)
     s = cfg.image_size
     kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
@@ -354,13 +364,12 @@ def _check_raster(name, main_batch, cfg, assets, rng):
               f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
               f"max|err|={err:.3g} (tri_id exact)")
         if order == "raster_rows":
-            made = _tests_made(name, win, cfg, s)
+            made = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
             print(f"{name}[{order}] tests made {made} of the mask walk's "
                   f"{pairs} ({made / pairs:.4f})")
-            inputs = (win.setup, win.blo, win.bn, win.cmask) + (
-                (rec,) if reads_records else ())
-            bound_ms, bound_by = _bound(_nbytes(*inputs, *got),
-                                        made * PAIR_FLOPS, name)
+            bound_ms, bound_by = _bound(
+                _raster_bytes(win, got, rec_fields, cfg.raster_cols,
+                              assets.n_faces), made * PAIR_FLOPS, name)
             result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
         main[order] = (win, rec, got)
@@ -464,12 +473,12 @@ def check_select_grad(cfg, assets, main):
 
 
 def check_wide_band(cfg, assets):
-    """K1, K2 and K4 on a band wider than one block of 1024 threads:
+    """K1, K2 and K4 on a wide band, 1,792 pixels a column tile:
     tile_h 8 with one 224-px column (benchmarks/raster_bench.py's
-    default), asset order, batch WIDE_BATCH. K1 takes it as it is, K2 and
-    K4 as 2 sub-columns of 112 px; each is held against its plain
-    version (tri_id exact; K1 color/bary within 1e-6, K2 and K4 exact).
-    K1 is timed there."""
+    default), asset order, batch WIDE_BATCH. Each launches as it does at
+    any size (one block of 128 threads a column tile of a band), is held
+    against its plain version (tri_id exact; K1 color/bary within 1e-6,
+    K2 and K4 exact) and is timed there."""
     from facerecon_tpu_torch.data.synthetic import sample_coeffs
     from facerecon_tpu_torch.ops.geometry import device_bfm
     wcfg = dataclasses.replace(cfg, tile_h=WIDE_TILE_H, raster_cols=1)
@@ -484,14 +493,12 @@ def check_wide_band(cfg, assets):
         torch.cuda.synchronize()
         err = _hold(name, got, plain(win, rec, **kw),
                     f"wide band, tile_h {WIDE_TILE_H} x one {s}-px column")
+        ms = _time_ms(lambda: kernel(win, rec, **kw), reps=20)
         print(f"wide band {name}: batch {WIDE_BATCH} tile_h {WIDE_TILE_H} x "
               f"one {s}-px column equal to the plain version (max|err| "
-              f"{err:.3g})")
-    kernel = _raster_kernels()["raster_shade"][0]
-    ms = _time_ms(lambda: kernel(win, rec, **kw), reps=20)
-    made = _k1_tests(win, WIDE_TILE_H, 1, s)
-    print(f"wide band raster_shade: {ms:.4f} ms (batch {WIDE_BATCH}, "
-          f"{made} tests made, mask walk {_live_pairs(win, wcfg)})")
+              f"{err:.3g}), {ms:.4f} ms")
+    print(f"wide band: {_tests_made(win, WIDE_TILE_H, 1, s)} tests made, "
+          f"mask walk {_live_pairs(win, wcfg)}")
     del bfm, rec, win
     torch.cuda.empty_cache()
 
@@ -567,7 +574,7 @@ def check_contract(cfg, assets):
         col_w = R.col_width(s, okw["n_cols"])
         print(f"contract [{order}]: raster_pos equal to the plain version "
               f"(tri_id, zbuf, row) at {okw['n_cols']} column(s) of "
-              f"{col_w} px, {cfg.tile_h * col_w} threads a block, seeds "
+              f"{col_w} px, {cfg.tile_h * col_w} px a column tile, seeds "
               f"{PARITY_SEEDS}")
     torch.cuda.synchronize()
 
@@ -697,17 +704,17 @@ def check_floor(cfg, assets):
               n_faces=assets.n_faces)
     live = int(_popcount(win.cmask).sum())
     added = win.cmask.numel() * 32 - live    # chunks the saturated masks add
-    for name, (kernel, plain, _, reads_records) in _raster_kernels().items():
-        n_ops = _tests_made(name, win, fcfg, s) * PAIR_FLOPS
+    n_ops = _tests_made(win, fcfg.tile_h, fcfg.raster_cols, s) * PAIR_FLOPS
+    for name, (kernel, plain, _, rec_fields) in _raster_kernels().items():
         got = kernel(win, rec, **kw)
         torch.cuda.synchronize()
         err = _hold(name, tuple(t[:FLOOR_CHECK] for t in got),
                     plain(sub, sub_rec, **kw),
                     f"floor, first {FLOOR_CHECK} images")
-        reads = (win.setup, win.blo, win.bn, win.cmask) + (
-            (rec,) if reads_records else ())
-        bound_ms, bound_by = _bound(_nbytes(*reads, *got), n_ops,
-                                    f"floor {name} (real masks)")
+        bound_ms, bound_by = _bound(
+            _raster_bytes(win, got, rec_fields, fcfg.raster_cols,
+                          assets.n_faces), n_ops,
+            f"floor {name} (real masks)")
         del got
         t_real = _time_ms(lambda: kernel(win, rec, **kw), reps=8)
         t_ones = _time_ms(lambda: kernel(ones, rec, **kw), reps=8)

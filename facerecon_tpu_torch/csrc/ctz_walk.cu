@@ -8,9 +8,10 @@
 //   ez = s4[j] * p + s5[j]   where   e0 = s0[j] * p + s1[j] >= 0,
 //   e1 = s2[j] * p + s3[j] >= 0   and   e0 + e1 <= 1,
 // with s_f[j] = setup[f][128 k + j]; +inf where nothing is covered. On
-// this card the walk is the __ffs loop of raster_common.cuh::band_ztest:
-// each set bit stages its chunk's six fields in shared memory with one
-// cooperative load, and each thread tests its pixel against the chunk.
+// this card the walk is an __ffs loop over the set bits (the order of
+// raster_common.cuh's ChunkWalk): each set bit stages its chunk's six
+// fields in shared memory with one cooperative load, and each thread
+// tests its pixel against the chunk.
 // The float ops keep the probe's order with explicit round-to-nearest
 // intrinsics (and the build passes -fmad=false), so the result equals the
 // plain version exactly.
@@ -18,7 +19,7 @@
 // Bound on this card: the f32 work of the live tests (7 ops each), far
 // above the bytes (the 24 KB of live setup is shared by every program).
 // The probe measures the walk's cost per live chunk, so the design keeps
-// the rasterizers' walk as it is: stage, synchronise, test.
+// the walk plain: stage, synchronise, test.
 //
 // Layout: mask (n_prog,) i32; setup (8, 8192) f32 row-major (fields 0..5
 // used, chunks 0..31 reachable); out (n_prog, 112) f32.

@@ -1,13 +1,19 @@
-// The z-tests of the rasterizer kernels, kept in one header so that they
-// cannot drift apart: band_ztest (one thread a pixel; raster_select.cu,
-// raster_pos.cu) and tile_ztest below (micro-tiled; raster_shade.cu).
+// The z-test of the rasterizer kernels and the block skeleton they share
+// (tile_raster at the end): raster_shade.cu (K1), raster_select.cu (K2)
+// and raster_pos.cu (K4) differ only in what they write for a pixel's
+// winner, so one header keeps their z-tests from drifting apart.
 //
 // Per pixel, the lexicographic minimum of (depth, original face id) over
 // the triangles that cover the pixel center, walking the band's union
 // window [blo, blo + bn) of 128-row chunks: the column's masked chunks of
 // the window's first 64, then every chunk beyond them (spatially
-// incoherent face orders). It computes what the z-test phase of
+// incoherent face orders). Exact ties of (depth, id) go to the lowest
+// raster row. It computes what the z-test phase of
 // facerecon_tpu/ops/rasterize_pallas.py::_kernel computes.
+//
+// A pixel's test of one triangle, with qx = fl(px - x0), qy = fl(py - y0):
+// e0 = fl(fl(fl(wa0 * qx) + fl(wb0 * qy)) + wc0), e1 and the depth ez the
+// same on their forms; covered iff e0 >= 0, e1 >= 0 and fl(e0 + e1) <= 1.
 //
 // Setup layout (B, 16, rows) f32, row-major: fields 0..5 affine w0/w1
 // forms [wa0 wb0 wc0 wa1 wb1 wc1], 6..8 depth form [za zb z0], 9..10
@@ -43,70 +49,14 @@ struct Winner {
   int row;    // its raster row
 };
 
-// The band's z-test for the pixel (px, py) of column tile `c`. Every
-// thread of the block calls it with the same band: chunks are staged in
-// `s` with one cooperative load each (the loop trip counts are uniform).
-__device__ __forceinline__ Winner band_ztest(
-    float (&s)[kStaged][kChunk], const float* __restrict__ sb, int rows,
-    int lo, int n, const int* __restrict__ cm, float px, float py) {
-  const int tid = threadIdx.x;
-  Winner w{__int_as_float(0x7f800000), 3e38f, 0};
-
-  // Stage chunk `k` of the band window (rows (lo + k) * 128 ...) in
-  // shared memory with one cooperative load, then test this thread's
-  // pixel against its 128 triangles. `k` is uniform across the block.
-  auto test_chunk = [&](int k) {
-    const int r0 = (lo + k) * kChunk;
-    __syncthreads();
-    for (int i = tid; i < kStaged * kChunk; i += blockDim.x) {
-      const int f = i / kChunk;
-      const int field = f < 11 ? f : 12;
-      s[f][i % kChunk] = sb[static_cast<size_t>(field) * rows + r0 +
-                            i % kChunk];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kChunk; ++j) {
-      const float qx = __fsub_rn(px, s[9][j]);
-      const float qy = __fsub_rn(py, s[10][j]);
-      const float e0 = affine(s[0][j], qx, s[1][j], qy, s[2][j]);
-      const float e1 = affine(s[3][j], qx, s[4][j], qy, s[5][j]);
-      const float ez = affine(s[6][j], qx, s[7][j], qy, s[8][j]);
-      const bool cov = (e0 >= 0.0f) && (e1 >= 0.0f) &&
-                       (__fadd_rn(e0, e1) <= 1.0f);
-      const float id = s[11][j];
-      if (cov && (ez < w.z || (ez == w.z && id < w.id))) {
-        w.z = ez;
-        w.id = id;
-        w.row = r0 + j;
-      }
-    }
-  };
-
-  // the column's masked chunks of the window's first 64 ...
-  for (int word = 0; word < kMaskWords; ++word) {
-    unsigned int m = static_cast<unsigned int>(cm[word]);
-    while (m != 0u) {
-      const int i = __ffs(m) - 1;
-      m &= m - 1u;
-      test_chunk(word * 32 + i);
-    }
-  }
-  // ... and every chunk beyond them (spatially incoherent face orders)
-  for (int k = kWindow; k < n; ++k) test_chunk(k);
-  return w;
-}
-
 // ---------------------------------------------------------------------
-// The micro-tiled z-test (K1; K2 and K4 still run band_ztest above).
-//
-// The same function as band_ztest, bit for bit, with the work of a test
-// cut down:
-//   - a lane owns an R x C micro-tile of pixels, so one shared-memory
-//     read of a triangle (three float4 broadcasts and its row) serves
-//     R*C tests, and the qx/qy subtractions and the a*qx / b*qy products
+// The micro-tiled z-test: the per-pixel test above, bit for bit, with
+// the work of a test cut down:
+//   - a lane owns a kTileR x kTileC (2 x 2) micro-tile of pixels, so one
+//     shared-memory read of a triangle (three float4 broadcasts and its
+//     row) serves 4 tests, and the qx/qy subtractions and the a*qx / b*qy products
 //     are shared along the tile's columns and rows (each pixel's edge
-//     and depth forms keep band_ztest's operations in its order);
+//     and depth forms keep the per-pixel test's operations in its order);
 //   - the 32 lanes of a warp cover a pixel group of up to 32 micro-tiles
 //     (a block covers a column tile of any size by looping over groups),
 //     and the kTileWarps warps of the block split every chunk into
@@ -123,6 +73,11 @@ __device__ __forceinline__ Winner band_ztest(
 // ---------------------------------------------------------------------
 
 constexpr int kTileWarps = 4;   // warps of a micro-tiled block
+constexpr int kTileR = 2;       // micro-tile rows
+constexpr int kTileC = 2;       // micro-tile columns
+constexpr int kTileThreads = kTileWarps * 32;
+constexpr int kGroupPx = 32 * kTileR * kTileC;   // pixels of a full group
+static_assert(kGroupPx == kTileThreads, "one thread a group pixel");
 
 // A staged triangle, triangle-major: [wa0 wb0 wc0 wa1] [wb1 wc1 za zb]
 // [z0 x0 y0 id].
@@ -131,7 +86,7 @@ struct Staged {
 };
 
 // The masked chunks of the window's first 64, then every chunk beyond
-// them: band_ztest's walk, as a generator (next() is -1 at the end).
+// them, in ascending order, as a generator (next() is -1 at the end).
 struct ChunkWalk {
   const int* cm;
   int n, word, k;
@@ -160,7 +115,7 @@ __device__ __forceinline__ float mul_lo(float a, float l, float h) {
 }
 
 // False only if the triangle covers no pixel center (px, py) with px in
-// [gx0, gx1] and py in [gy0, gy1], as band_ztest's float test decides it.
+// [gx0, gx1] and py in [gy0, gy1], as the per-pixel float test decides it.
 // Exact, with no tolerance: every step of a pixel's e0 =
 // fl(fl(fl(wa0*qx) + fl(wb0*qy)) + wc0), qx = fl(px - x0), is monotone
 // in its operands under round-to-nearest, so e0 at any such pixel lies
@@ -185,11 +140,10 @@ __device__ __forceinline__ bool cull_live(const float (&f)[kStaged],
 }
 
 // One lane's winners, pixel (r, c) of its micro-tile.
-template <int R, int C>
 struct TileWinners {
-  float z[R][C];
-  float id[R][C];
-  int row[R][C];
+  float z[kTileR][kTileC];
+  float id[kTileR][kTileC];
+  int row[kTileR][kTileC];
 };
 
 // The z-test of one pixel group for this warp's segments of the band's
@@ -197,14 +151,14 @@ struct TileWinners {
 // lane's pixel centers, [gx0, gx1] x [gy0, gy1] the group's rectangle of
 // pixel centers (every lane's pixels lie in it). Called by every lane of
 // the warp (the trip counts are warp-uniform).
-template <int R, int C>
-__device__ __forceinline__ TileWinners<R, C> tile_ztest(
+__device__ __forceinline__ TileWinners tile_ztest(
     Staged* seg, int* seg_row, const float* __restrict__ sb, int rows,
-    int lo, int n, const int* __restrict__ cm, const float (&px)[C],
-    const float (&py)[R], float gx0, float gx1, float gy0, float gy1) {
+    int lo, int n, const int* __restrict__ cm, const float (&px)[kTileC],
+    const float (&py)[kTileR], float gx0, float gx1, float gy0, float gy1) {
+  constexpr int R = kTileR, C = kTileC;
   const int lane = threadIdx.x & 31;
   const int part = (threadIdx.x >> 5) * 32 + lane;   // row in the chunk
-  TileWinners<R, C> w;
+  TileWinners w;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -296,6 +250,118 @@ __device__ __forceinline__ int winner_id(const Winner& w, int n_faces) {
     if (v >= 0 && v < n_faces) return v;
   }
   return -1;
+}
+
+// ---------------------------------------------------------------------
+// The block skeleton of K1, K2 and K4: one block of kTileThreads threads
+// for each (column tile c, band t, image b) = blockIdx, for a band of any
+// size. It walks the column tile in pixel groups of gc x gr micro-tiles
+// (gc * gr <= 32; the groups tile the column tile from its top-left
+// corner, and the last row and column of groups may reach past it: those
+// pixels are tested, never written). For each group, every warp runs
+// tile_ztest on its segments, the warps' winners are merged in shared
+// memory by `beats`, and then one thread a group pixel (tid < gw * gh,
+// row-major, so stores to an image plane are coalesced) calls
+//   epi(b, x, y, pix, winner)
+// for each pixel (x, y) of the group inside the tile and the image, with
+// pix = (b * height + y) * width + x. Static shared memory: 12,800 bytes.
+// ---------------------------------------------------------------------
+template <class Epi>
+__device__ __forceinline__ void tile_raster(
+    const float* __restrict__ setup, const int* __restrict__ blo,
+    const int* __restrict__ bn, const int* __restrict__ cmask, int height,
+    int width, int tile_h, int n_cols, int col_w, int n_bands, int rows,
+    Epi&& epi) {
+  __shared__ Staged s_seg[kTileWarps][32];
+  __shared__ int s_segrow[kTileWarps][32];
+  __shared__ float s_z[kTileWarps][kGroupPx];
+  __shared__ float s_id[kTileWarps][kGroupPx];
+  __shared__ int s_row[kTileWarps][kGroupPx];
+
+  const int c = blockIdx.x;
+  const int t = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int band = b * n_bands + t;
+  const int lo = blo[band];
+  const int n = bn[band];
+  const int* cm = cmask + (static_cast<size_t>(band) * n_cols + c) *
+                              kMaskWords;
+  const float* sb = setup + static_cast<size_t>(b) * kSetupFields * rows;
+
+  // pixel groups: gc x gr micro-tiles (gc * gr <= 32) of the column tile
+  const int mcols = (col_w + kTileC - 1) / kTileC;
+  const int mrows = (tile_h + kTileR - 1) / kTileR;
+  const int gc = min(mcols, 32);
+  const int gr = min(mrows, 32 / gc);
+  const int gw = gc * kTileC;                 // group pixel columns
+  const int gh = gr * kTileR;                 // group pixel rows
+  const int x_tile = c * col_w;               // the tile's first pixel
+  const int y_tile = t * tile_h;
+
+  for (int gy = 0; gy < mrows; gy += gr) {
+    for (int gx = 0; gx < mcols; gx += gc) {
+      // this lane's micro-tile (lanes beyond the group test pixels that
+      // are never written, so every lane stages a triangle)
+      const int x0 = x_tile + (gx + lane % gc) * kTileC;
+      const int y0 = y_tile + (gy + lane / gc) * kTileR;
+      float px[kTileC], py[kTileR];
+#pragma unroll
+      for (int k = 0; k < kTileC; ++k) {
+        px[k] = static_cast<float>(x0 + k) + 0.5f;
+      }
+#pragma unroll
+      for (int k = 0; k < kTileR; ++k) {
+        py[k] = static_cast<float>(y0 + k) + 0.5f;
+      }
+      const int gx_px = x_tile + gx * kTileC;
+      const int gy_px = y_tile + gy * kTileR;
+      const float gx0 = static_cast<float>(gx_px) + 0.5f;
+      const float gy0 = static_cast<float>(gy_px) + 0.5f;
+      const float gx1 = static_cast<float>(gx_px + gw - 1) + 0.5f;
+      const float gy1 = static_cast<float>(gy_px + gh - 1) + 0.5f;
+      const TileWinners w = tile_ztest(s_seg[warp], s_segrow[warp], sb,
+                                       rows, lo, n, cm, px, py, gx0, gx1,
+                                       gy0, gy1);
+
+      // merge the warps' winners per group pixel
+      if (lane < gc * gr) {
+#pragma unroll
+        for (int r = 0; r < kTileR; ++r) {
+#pragma unroll
+          for (int k = 0; k < kTileC; ++k) {
+            const int p = ((lane / gc) * kTileR + r) * gw +
+                          (lane % gc) * kTileC + k;
+            s_z[warp][p] = w.z[r][k];
+            s_id[warp][p] = w.id[r][k];
+            s_row[warp][p] = w.row[r][k];
+          }
+        }
+      }
+      __syncthreads();
+      if (tid < gw * gh) {
+        Winner win{s_z[0][tid], s_id[0][tid], s_row[0][tid]};
+#pragma unroll
+        for (int v = 1; v < kTileWarps; ++v) {
+          if (beats(s_z[v][tid], s_id[v][tid], s_row[v][tid], win.z, win.id,
+                    win.row)) {
+            win = Winner{s_z[v][tid], s_id[v][tid], s_row[v][tid]};
+          }
+        }
+        const int xo = gx * kTileC + tid % gw;   // column in the tile
+        const int yo = gy * kTileR + tid / gw;   // row in the band
+        const int x = x_tile + xo;
+        const int y = y_tile + yo;
+        if (xo < col_w && yo < tile_h && x < width && y < height) {
+          epi(b, x, y, (static_cast<size_t>(b) * height + y) * width + x,
+              win);
+        }
+      }
+      __syncthreads();   // the next group rewrites the merge arrays
+    }
+  }
 }
 
 }  // namespace raster

@@ -10,11 +10,15 @@
 // The §9.5 contract path (ops/rasterize.rasterize_batch) decodes the
 // barycentrics from the winner's setup row, which the row output names.
 //
-// Bound on this card: the f32 work of the pixel x candidate tests (the
-// same as raster_shade's and raster_select's), against the bytes of
-// setup, windows and the 3 output planes. This first design, like theirs,
-// stages one chunk of setup at a time in shared memory and does not
-// overlap loads with tests.
+// Bound on this card: the f32 work of the pixel x triangle tests that the
+// group cull keeps (it writes only 12 bytes a pixel). The design runs
+// the z-test of raster_shade.cu unchanged through the shared skeleton
+// (raster_common.cuh, tile_raster): 2 x 2 pixels a lane share a
+// triangle's shared-memory read and their qx/qy products, each warp
+// drops the triangles of its chunk segment that cover no pixel center of
+// its pixel group for certain (an exact bound), and the next segment
+// loads while the current one is tested. The epilogue writes one pixel a
+// thread, row-major within the group, so the plane stores are coalesced.
 //
 // Layout (all row-major, contiguous): setup, blo/bn, cmask as in
 // raster_common.cuh. Outputs: tri_id (B, H, W) i32 and row (B, H, W) i32
@@ -26,38 +30,21 @@ namespace {
 
 using namespace raster;
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kTileThreads)
 raster_pos_kernel(const float* __restrict__ setup,
                   const int* __restrict__ blo, const int* __restrict__ bn,
                   const int* __restrict__ cmask, int* __restrict__ tri_id,
                   float* __restrict__ zbuf, int* __restrict__ row_out,
                   int height, int width, int tile_h, int n_cols, int col_w,
                   int n_bands, int rows, int n_faces) {
-  __shared__ float s[kStaged][kChunk];
-
-  const int c = blockIdx.x;
-  const int t = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int x = c * col_w + tid % col_w;
-  const int y = t * tile_h + tid / col_w;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-
-  const int band = b * n_bands + t;
-  const Winner win = band_ztest(
-      s, setup + static_cast<size_t>(b) * kSetupFields * rows, rows,
-      blo[band], bn[band],
-      cmask + (static_cast<size_t>(band) * n_cols + c) * kMaskWords, px, py);
-
-  if (x >= width || y >= height) return;  // column padding
-
-  const int id = winner_id(win, n_faces);
-  const size_t at = static_cast<size_t>(b) * height * width +
-                    static_cast<size_t>(y) * width + x;
-  tri_id[at] = id;
-  zbuf[at] = id >= 0 ? win.z : __int_as_float(0x7f800000);
-  row_out[at] = id >= 0 ? win.row : -1;
+  tile_raster(
+      setup, blo, bn, cmask, height, width, tile_h, n_cols, col_w, n_bands,
+      rows, [&](int, int, int, size_t pix, const Winner& win) {
+        const int id = winner_id(win, n_faces);
+        tri_id[pix] = id;
+        zbuf[pix] = id >= 0 ? win.z : __int_as_float(0x7f800000);
+        row_out[pix] = id >= 0 ? win.row : -1;
+      });
 }
 
 }  // namespace
@@ -69,8 +56,8 @@ extern "C" int raster_pos(const void* setup, const void* blo, const void* bn,
                           int tile_h, int n_cols, int col_w, int n_bands,
                           int rows, int n_faces, void* stream) {
   const dim3 grid(n_cols, n_bands, batch);
-  const int threads = tile_h * col_w;
-  raster_pos_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_pos_kernel<<<grid, kTileThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(setup), static_cast<const int*>(blo),
       static_cast<const int*>(bn), static_cast<const int*>(cmask),
       static_cast<int*>(tri_id), static_cast<float*>(zbuf),

@@ -13,8 +13,7 @@ wrapper that launches it on CUDA tensors, runs its plain PyTorch version
 (`*_reference`, the same function) on CPU tensors, and counts launches in
 `_build.LAUNCHES`:
   - `shade_windows` -> `csrc/raster_shade.cu` (K1, inference: z-test +
-    in-kernel shading; a micro-tiled z-test that takes a band of any
-    size); `rasterize_shaded` chains binning and K1;
+    in-kernel shading); `rasterize_shaded` chains binning and K1;
   - `select_windows` -> `csrc/raster_select.cu` (K2, training forward:
     z-test + the winner's record fields and raster row);
   - `select_grad` -> `csrc/select_grad.cu` (K3, K2's adjoint: per raster
@@ -22,8 +21,12 @@ wrapper that launches it on CUDA tensors, runs its plain PyTorch version
     winner rows);
   - `pos_windows` -> `csrc/raster_pos.cu` (K4, the z-test alone: winner
     face id, depth and raster row).
-K2 and K4 run one thread a pixel of a column tile; a tile wider than
-1024 pixels launches as sub-columns (`_raster_ints`).
+K1, K2 and K4 share one micro-tiled z-test and block skeleton
+(`csrc/raster_common.cuh`) and take one launch shape (`_raster_ints`):
+a block of 128 threads for each (column tile, band, image), for a band
+of any size; a block walks its tile in pixel groups (`pixel_group`) and
+drops, per group, only triangles that cover none of the group's pixel
+centers (`cull_keeps` is that cull's plain twin).
 `RasterizeSelect` is the autograd Function over K2 and K3, and
 `rasterize_select` chains binning and it. `rasterize_positions` chains
 binning and K4, and `rasterize_batch` (the §9.5 (tri_id, bary, zbuf)
@@ -48,6 +51,7 @@ _FIELDS = 24            # render-attribute record width
 _REF_ROWS = 8192        # rows per step of the plain version's window walk
 _SEL = 20               # record fields the select returns per pixel
 _GRAD = 17              # differentiable record fields
+_MICRO = 2              # a kernel lane's micro-tile: 2 x 2 pixels
 
 
 def padded_rows(n_faces: int) -> int:
@@ -112,34 +116,15 @@ def _check_inputs(win: Windows, records, height, width, tile_h, n_cols):
     _build.check_tensors(win.setup.device, want)
 
 
-def _raster_ints(win: Windows, height, width, tile_h, n_cols, n_faces,
-                 split: bool = True):
-    """The raster kernels' column masks and int arguments.
-
-    K2 and K4 run one thread a pixel of a band's column tile, at most
-    1024 threads a block. With `split`, a wider tile launches as k
-    sub-columns of col_width / k pixels (the smallest k that divides the
-    width and fits a block), each with its parent column's two mask
-    words: a mask only prunes chunks that cover none of the column's
-    pixels, so it holds for any part of the column, and the (depth, id)
-    minimum does not depend on the order of the chunks tested. Only a
-    band taller than 1024 rows of an 8-px sub-column is refused. K1 takes
-    any tile (split=False). The plain versions take any band."""
-    col_w = col_width(width, n_cols)
+def _raster_ints(win: Windows, height, width, tile_h, n_cols, n_faces):
+    """The raster kernels' int arguments. K1, K2 and K4 launch alike: one
+    block of 128 threads for each (column tile, band, image), with the
+    windows' column masks as they are, for a band of any size (a block
+    walks its column tile in pixel groups, `pixel_group`)."""
     bsz, _, rows = win.setup.shape
     n_bands = (height + tile_h - 1) // tile_h
-    cmask = win.cmask
-    if split and tile_h * col_w > 1024:
-        if tile_h * 8 > 1024:
-            raise ValueError(f"tile_h * 8 = {tile_h * 8} pixels exceeds one "
-                             "block of 1024 threads")
-        k = next(k for k in range(2, col_w + 1)
-                 if col_w % k == 0 and tile_h * (col_w // k) <= 1024)
-        cmask = (cmask.view(bsz, n_bands, n_cols, _MWORDS)
-                 .repeat_interleave(k, 2).reshape(bsz, -1))
-        n_cols, col_w = n_cols * k, col_w // k
-    return cmask, (bsz, height, width, tile_h, n_cols, col_w, n_bands, rows,
-                   n_faces)
+    return (bsz, height, width, tile_h, n_cols, col_width(width, n_cols),
+            n_bands, rows, n_faces)
 
 
 def shade_windows(win: Windows, records, *, height: int, width: int,
@@ -161,12 +146,12 @@ def shade_windows(win: Windows, records, *, height: int, width: int,
     color = torch.empty((bsz, height, width, 3), dtype=torch.float32,
                         device=dev)
     bary = torch.empty_like(color)
-    cmask, ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces,
-                               split=False)
     if bsz:
         _build.launch("raster_shade", dev, (win.setup, records, win.blo,
-                                            win.bn, cmask, tri_id, color,
-                                            bary), ints)
+                                            win.bn, win.cmask, tri_id, color,
+                                            bary),
+                      _raster_ints(win, height, width, tile_h, n_cols,
+                                   n_faces))
     return tri_id, color, bary
 
 
@@ -190,11 +175,12 @@ def select_windows(win: Windows, records, *, height: int, width: int,
     row = torch.empty_like(tri_id)
     sel = torch.empty((bsz, _SEL, height, width), dtype=torch.float32,
                       device=dev)
-    cmask, ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
     if bsz:
         _build.launch("raster_select", dev, (win.setup, records, win.blo,
-                                             win.bn, cmask, tri_id, row,
-                                             sel), ints)
+                                             win.bn, win.cmask, tri_id, row,
+                                             sel),
+                      _raster_ints(win, height, width, tile_h, n_cols,
+                                   n_faces))
     return tri_id, row, sel
 
 
@@ -216,11 +202,47 @@ def pos_windows(win: Windows, *, height: int, width: int, tile_h: int,
     tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
     zbuf = torch.empty((bsz, height, width), dtype=torch.float32, device=dev)
     row = torch.empty_like(tri_id)
-    cmask, ints = _raster_ints(win, height, width, tile_h, n_cols, n_faces)
     if bsz:
         _build.launch("raster_pos", dev, (win.setup, win.blo, win.bn,
-                                          cmask, tri_id, zbuf, row), ints)
+                                          win.cmask, tri_id, zbuf, row),
+                      _raster_ints(win, height, width, tile_h, n_cols,
+                                   n_faces))
     return tri_id, zbuf, row
+
+
+def pixel_group(tile_h: int, col_w: int) -> tuple[int, int]:
+    """(width, height) in pixels of the kernels' pixel group for a column
+    tile of col_w x tile_h pixels (csrc/raster_common.cuh, tile_raster):
+    gc x gr micro-tiles of 2 x 2 px, gc = min(micro-tile columns, 32), gr
+    = min(micro-tile rows, 32 // gc). The groups tile the column tile from
+    its top-left corner; the last row and column of groups may reach past
+    it (their pixels there are tested, never written)."""
+    mcols = (col_w + _MICRO - 1) // _MICRO
+    mrows = (tile_h + _MICRO - 1) // _MICRO
+    gc = min(mcols, 32)
+    return gc * _MICRO, min(mrows, 32 // gc) * _MICRO
+
+
+def cull_keeps(f, x0, x1, y0, y1):
+    """The kernels' per-group triangle cull (csrc/raster_common.cuh,
+    cull_live) in float32, op for op: False where the triangle with setup
+    fields f[0..10] covers no pixel center of the rectangle [x0, x1] x
+    [y0, y1] for certain, as the z-test's float ops decide coverage.
+    Broadcasts over the fields' and the bounds' shapes."""
+    qxl, qxh = x0 - f[9], x1 - f[9]
+    qyl, qyh = y0 - f[10], y1 - f[10]
+
+    def ext(op, a, lo, hi):
+        return op(a * lo, a * hi)
+    hi0 = (ext(torch.maximum, f[0], qxl, qxh)
+           + ext(torch.maximum, f[1], qyl, qyh)) + f[2]
+    hi1 = (ext(torch.maximum, f[3], qxl, qxh)
+           + ext(torch.maximum, f[4], qyl, qyh)) + f[5]
+    lo0 = (ext(torch.minimum, f[0], qxl, qxh)
+           + ext(torch.minimum, f[1], qyl, qyh)) + f[2]
+    lo1 = (ext(torch.minimum, f[3], qxl, qxh)
+           + ext(torch.minimum, f[4], qyl, qyh)) + f[5]
+    return ~((hi0 < 0) | (hi1 < 0) | (lo0 + lo1 > 1))
 
 
 def _band_winners(win: Windows, height: int, width: int, tile_h: int,

@@ -219,109 +219,106 @@ def test_native_oracle_matches_numpy_oracle(cfg, assets):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["split", "refused"])
-def test_wide_band_launch_is_refused(cfg, assets, case):
-    """The launch path of K2 and K4 (_raster_ints, before every launch,
-    no card needed). A band wider than one block of 1024 threads (tile_h
-    8 x one 224-px column, as benchmarks/raster_bench.py's default makes)
-    launches as 2 sub-columns of 112 px, each with its parent column's
-    mask words; K1 (split=False) takes it as it is. Only a band taller
-    than 1024 rows of an 8-px sub-column is still refused."""
+@pytest.mark.parametrize("tile_h", [136, 8])
+def test_raster_ints_take_any_band(cfg, assets, monkeypatch, tile_h):
+    """The launch path of K1, K2 and K4 (each wrapper up to _build.launch,
+    no card needed) takes a band of any size: tile_h 136 and tile_h 8
+    (benchmarks/raster_bench.py's default), each with one 224-px column,
+    launch as they are, one block a (column, band, image), with the
+    windows' column masks unchanged and no ValueError."""
     vndc = torch.from_numpy(np.array(_verts(cfg, assets, 12, batch=1)))
     faces = torch.from_numpy(assets.faces.astype(np.int64))
-    rid = torch.arange(assets.n_faces)
-    if case == "refused":
-        win = TR.band_windows(vndc, faces, rid, 224, 224, 136, 1)
-        with pytest.raises(ValueError, match="1024"):
-            TR._raster_ints(win, 224, 224, 136, 1, assets.n_faces)
-        return
-    win = TR.band_windows(vndc, faces, rid, 224, 224, 8, 1)
+    win = TR.band_windows(vndc, faces, torch.arange(assets.n_faces), 224,
+                          224, tile_h, 1)
     assert win.cmask.any()
-    cmask, ints = TR._raster_ints(win, 224, 224, 8, 1, assets.n_faces)
-    bsz, height, width, tile_h, n_cols, col_w, n_bands = ints[:7]
-    assert (n_cols, col_w, tile_h * col_w, n_bands) == (2, 112, 896, 28)
-    sub = cmask.view(bsz, n_bands, n_cols, 2)
-    parent = win.cmask.view(bsz, n_bands, 1, 2)
-    assert torch.equal(sub, parent.expand(bsz, n_bands, n_cols, 2))
-    k1_mask, k1_ints = TR._raster_ints(win, 224, 224, 8, 1, assets.n_faces,
-                                       split=False)
-    assert k1_mask is win.cmask and k1_ints[4:6] == (1, 224)
+    rows = win.setup.shape[2]
+    rec = torch.zeros((1, 24, rows))
+    launched = {}
+    monkeypatch.setattr(TR._build, "on_card", lambda dev: True)
+    monkeypatch.setattr(TR._build, "launch",
+                        lambda name, dev, ptrs, ints:
+                        launched.update({name: (ptrs, ints)}))
+    kw = dict(height=224, width=224, tile_h=tile_h, n_cols=1,
+              n_faces=assets.n_faces)
+    TR.shade_windows(win, rec, **kw)
+    TR.select_windows(win, rec, **kw)
+    TR.pos_windows(win, **kw)
+    n_bands = (224 + tile_h - 1) // tile_h
+    for name, at in (("raster_shade", 4), ("raster_select", 4),
+                     ("raster_pos", 3)):
+        ptrs, ints = launched[name]
+        assert ptrs[at] is win.cmask
+        assert ints == (1, 224, 224, tile_h, 1, 224, n_bands, rows,
+                        assets.n_faces)
 
 
-def _masked_walk_rows(win, cmask, height, width, tile_h, n_cols, col_w,
-                      n_faces):
-    """The winner raster row of every pixel (-1 where nothing covers) by
-    the kernels' walk: per (band, column), only the column's masked chunks
-    of the window's first 64 and every chunk beyond them, with
-    _band_winners' float ops and its (depth, id, lowest row) rule."""
-    setup = win.setup
-    bsz = setup.shape[0]
-    n_bands = (height + tile_h - 1) // tile_h
-    words = cmask.view(bsz, n_bands, n_cols, 2).to(torch.int64) & 0xFFFFFFFF
-    out = torch.full((bsz, n_bands * tile_h, n_cols * col_w), -1,
-                     dtype=torch.int64)
-    for b in range(bsz):
-        for t in range(n_bands):
-            lo, n = int(win.blo[b, t]), int(win.bn[b, t])
-            for c in range(n_cols):
-                chunks = [w * 32 + i for w in range(2) for i in range(32)
-                          if (int(words[b, t, c, w]) >> i) & 1]
-                chunks += list(range(64, n))
-                if not chunks:
-                    continue
-                r = torch.cat([torch.arange((lo + k) * 128,
-                                            (lo + k + 1) * 128)
-                               for k in chunks])
-                cf = setup[b][:, r]
-                ys, xs = torch.meshgrid(torch.arange(tile_h) + t * tile_h,
-                                        torch.arange(col_w) + c * col_w,
-                                        indexing="ij")
-                px = xs.reshape(-1).to(torch.float32) + 0.5
-                py = ys.reshape(-1).to(torch.float32) + 0.5
-                qx = px[:, None] - cf[9]
-                qy = py[:, None] - cf[10]
-                e0 = cf[0] * qx + cf[1] * qy + cf[2]
-                e1 = cf[3] * qx + cf[4] * qy + cf[5]
-                ez = cf[6] * qx + cf[7] * qy + cf[8]
-                cov = (e0 >= 0.0) & (e1 >= 0.0) & (e0 + e1 <= 1.0)
-                zm = torch.where(cov, ez, float("inf"))
-                zmin = zm.amin(dim=1)
-                at_min = cov & (zm == zmin[:, None])
-                idw = torch.where(at_min, cf[12], 3e38).amin(dim=1)
-                first = torch.argmax((at_min & (cf[12] == idw[:, None]))
-                                     .to(torch.uint8), dim=1)
-                ids = idw.to(torch.int64)
-                hit = (zmin < 3e37) & (ids >= 0) & (ids < n_faces)
-                out[b, t * tile_h:(t + 1) * tile_h,
-                    c * col_w:(c + 1) * col_w] = torch.where(
-                        hit, r[first], -1).view(tile_h, col_w)
-    return out[:, :height, :width]
+def _plain_cover(f, xs, ys):
+    """(pixels, rows) coverage of the pixel centers xs x ys (row-major) by
+    the setup rows f, with the z-test's float32 ops in its order."""
+    py, px = torch.meshgrid(ys.to(torch.float32) + 0.5,
+                            xs.to(torch.float32) + 0.5, indexing="ij")
+    qx = px.reshape(-1, 1) - f[9]
+    qy = py.reshape(-1, 1) - f[10]
+    e0 = f[0] * qx + f[1] * qy + f[2]
+    e1 = f[3] * qx + f[4] * qy + f[5]
+    return (e0 >= 0.0) & (e1 >= 0.0) & (e0 + e1 <= 1.0)
 
 
-@pytest.mark.parametrize("case", ["raster_rows", "shuffled"])
-def test_split_masks_walk_finds_the_plain_winners(cfg, assets, case):
-    """A walk that honours the split column masks (tile_h 32 x one 64-px
-    column, split into 2 sub-columns of 32 px) finds the winners of the
-    plain version, which walks each band's whole window."""
-    _, rows, rid, _ = _order(cfg, assets, case)
-    vndc = torch.from_numpy(np.array(_verts(cfg, assets, 13, batch=2)))
+@pytest.mark.parametrize("band", [(2, None), (4, 2), (32, 1)],
+                         ids=["tiny_config", "tile_h4", "tall"])
+@pytest.mark.parametrize("case", ["raster_rows", "shuffled", "cull"])
+def test_group_cull_keeps_every_winner(cfg, assets, case, band):
+    """The kernels' per-group cull never drops a triangle that covers a
+    pixel of the group. For every pixel group (TR.pixel_group, as the
+    kernels form them) of every column tile, TR.cull_keeps (the float32
+    twin of cull_live) on the group's rectangle keeps each of its pixels'
+    plain winner rows (pos_windows_reference), and every row of the band's
+    window that covers one of its pixel centers by the z-test's float ops;
+    and it drops some rows that cover pixels of other groups. Bands: tiny_config's (tile_h 2, 32-px
+    columns), tile_h 4 with 32-px columns (the default config's group of
+    16 x 2 micro-tiles) and a tall band of tile_h 32 x one 64-px
+    column."""
+    n_cols, rows, rid, cull = _order(cfg, assets, case)
+    tile_h, n_cols = band[0], band[1] or n_cols
     s = cfg.image_size
+    vndc = torch.from_numpy(np.array(_verts(cfg, assets, 13, batch=2)))
     win = TR.band_windows(vndc, torch.from_numpy(rows.astype(np.int64)),
-                          torch.from_numpy(rid.astype(np.int64)), s, s, 32, 1)
-    cmask, ints = TR._raster_ints(win, s, s, 32, 1, assets.n_faces)
-    n_cols, col_w = ints[4:6]
-    assert (n_cols, col_w) == (2, 32)
-    _, _, ref_row = TR.pos_windows_reference(
-        win, height=s, width=s, tile_h=32, n_cols=1, n_faces=assets.n_faces)
-    got = _masked_walk_rows(win, cmask, s, s, 32, n_cols, col_w,
-                            assets.n_faces)
-    assert (ref_row >= 0).float().mean() > 0.1
-    assert torch.equal(got, ref_row.to(torch.int64))
+                          torch.from_numpy(rid.astype(np.int64)), s, s,
+                          tile_h, n_cols, cull)
+    _, _, winner = TR.pos_windows_reference(
+        win, height=s, width=s, tile_h=tile_h, n_cols=n_cols,
+        n_faces=assets.n_faces)
+    assert (winner >= 0).float().mean() > 0.1
+    col_w = TR.col_width(s, n_cols)
+    gw, gh = TR.pixel_group(tile_h, col_w)
+    dropped = 0
+    for b in range(winner.shape[0]):
+        for t in range(win.blo.shape[1]):
+            lo, n = int(win.blo[b, t]) * 128, int(win.bn[b, t]) * 128
+            f = win.setup[b, :, lo:lo + n]
+            in_band = _plain_cover(f, torch.arange(s), torch.arange(
+                t * tile_h, min((t + 1) * tile_h, s))).any(0)
+            for x0, y0 in ((c * col_w + gx, t * tile_h + gy)
+                           for c in range(n_cols)
+                           for gx in range(0, col_w, gw)
+                           for gy in range(0, tile_h, gh)):
+                keep = TR.cull_keeps(f, x0 + 0.5, x0 + gw - 0.5, y0 + 0.5,
+                                     y0 + gh - 0.5)
+                xs = torch.arange(x0, min(x0 + gw, (x0 // col_w + 1) * col_w,
+                                          s))
+                ys = torch.arange(y0, min(y0 + gh, (t + 1) * tile_h, s))
+                if not (len(xs) and len(ys)):
+                    continue
+                assert not (_plain_cover(f, xs, ys) & ~keep).any()
+                w = winner[b, ys][:, xs].reshape(-1).to(torch.int64)
+                assert keep[w[w >= 0] - lo].all()
+                dropped += int((in_band & ~keep).sum())
+    assert dropped > 0
 
 
 def test_wide_band_on_cpu_matches_reference(cfg, assets):
-    """The plain versions take a band the kernels refuse (tile_h 8 x one
-    160-px column, 1,280 pixels): rasterize_positions on the CPU equals
+    """The plain versions take a wide band too (tile_h 8 x one 160-px
+    column, 1,280 pixels): rasterize_positions on the CPU equals
     the reference's (interpret mode) with the bars above, and its own
     result on narrow bands exactly (the z-test does not depend on the
     banding)."""
