@@ -5,7 +5,9 @@
 
 Phases (any failed check raises, and the script exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit; TF32 off.
-  2. build: compiles every kernel of the port from csrc/ with nvcc.
+  2. build: compiles every kernel of the port from csrc/ with nvcc, and
+     prints each one's ptxas registers and spills and the opcode mix of
+     its machine code (cuobjdump).
   3. kernels: each kernel against its plain PyTorch version at full width
      (default config: 224 px, synthetic BFM with 70,688 faces). The
      rasterizers K1 (raster_shade) and K2 (raster_select) on the asset's
@@ -18,8 +20,10 @@ Phases (any failed check raises, and the script exits non-zero):
      depth and winner row exactly equal); K1, K2 and K4 on a wide band
      (tile_h 8 x one 224-px column), each held and timed there. Times each
      kernel and its plain version; the bounds of K1, K2 and K4 count the
-     tests they make after their shared per-group cull and the bytes they
-     must read (the walked setup chunks, the winners' record sectors).
+     f32 ops of the tests they make after their shared per-group cull (7
+     adds a test, plus the products each pixel column and row of a group
+     shares) and the bytes they must read (the walked setup chunks, the
+     winners' record sectors).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch (finite outputs, coverage, one K1 launch per
      call, agreement with the same float32 pipeline run on the CPU), a
@@ -49,7 +53,8 @@ Phases (any failed check raises, and the script exits non-zero):
   8. K6 (ctz_walk): the live-chunk walk probe against its plain version
      at benchmarks/ctzloop_probe.py's shape (2,048 programs, 4/8/16/32
      live bits), exactly equal, then timed (counters reset just before):
-     ns per live chunk.
+     ns per live chunk; its bound is that of the per-program walk the
+     probe makes, with the function's own bound printed beside it.
   9. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Uses random weights from a seed and random images, as bench.py does.
@@ -57,11 +62,14 @@ Uses random weights from a seed and random images, as bench.py does.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,12 +81,17 @@ TRAIN_BATCH = 128    # training main-path batch (bench.py's train mode)
 FIT_STEPS = 10       # loss-decrease check: steps on one batch of CHECK_BATCH
 CHECK_BATCH = 8      # shuffled-order kernel check and checked e2e batch
 H100_BYTES_S = 3.35e12   # HBM rate, H100 SXM data sheet
-H100_F32_S = 67e12       # float32 rate outside the tensor cores, counting
-                         # a fused multiply-add as 2 ops; the kernels build
-                         # with -fmad=false, so each op runs alone at
-                         # about half this rate and the ops bound is low
-PAIR_FLOPS = 15      # f32 ops per pixel x triangle test (2 sub, 3 x 2 mul
-                     # + 2 add, 1 add), comparisons not counted
+H100_F32_S = 132 * 128 * 1.98e9  # f32 ops a second: one unfused op per
+                         # instruction (the kernels build with -fmad=false,
+                         # so no multiply-add fuses), 128 lanes on each of
+                         # 132 SMs at 1.98 GHz; the data sheet's 67e12
+                         # counts a fused multiply-add as 2 ops
+TEST_ADDS = 7        # f32 adds per pixel x triangle test (2 each for the
+                     # edge forms e0, e1 and the depth, 1 for e0 + e1)
+AXIS_OPS = 4         # f32 ops per triangle for each distinct pixel column
+                     # (row) of a group: qx = px - x0, then the three
+                     # forms' a * qx, shared by the column's pixels;
+                     # comparisons not counted
 WALK_FLOPS = 7       # f32 ops per ctz_walk test (3 x (mul + add), 1 add)
 PARITY_SEEDS = (7, 8)    # contract parity (tests/test_tpu_parity.py)
 PARITY_BATCH = 4
@@ -141,13 +154,16 @@ def _live_pairs(win, cfg) -> int:
     return masked + beyond * 128 * col_px * cfg.raster_cols
 
 
-def _tests_made(win, tile_h: int, n_cols: int, width: int) -> int:
-    """Pixel x triangle tests K1, K2 and K4 make on these windows: for
+def _tests_made(win, tile_h: int, n_cols: int, width: int):
+    """(tests, f32 ops) of K1, K2 and K4 on these windows. The tests: for
     each pixel group of each column tile (ops/rasterize.pixel_group), the
     triangles of the chunks its walk visits (the column's masked chunks
     of the first 64, then every chunk beyond) that the group's cull keeps
     (ops/rasterize.cull_keeps, the kernels' cull in float32), times the
-    group's pixels inside the tile."""
+    group's pixels inside the tile. The ops those tests need at least:
+    for each kept triangle, TEST_ADDS a pixel and AXIS_OPS for each of
+    the group's pixel columns and rows inside the tile (the kernels'
+    2 x 2 micro-tiles share less and issue 11 a test)."""
     from facerecon_tpu_torch.ops.rasterize import (col_width, cull_keeps,
                                                    pixel_group)
     col_w = col_width(width, n_cols)
@@ -163,7 +179,7 @@ def _tests_made(win, tile_h: int, n_cols: int, width: int) -> int:
     j = torch.arange(128, device=dev)
     t_px = torch.arange(n_bands, device=dev) * tile_h
     c_px = torch.arange(n_cols, device=dev) * col_w
-    total = 0
+    tests = ops = 0
     for b0 in range(0, bsz, 4):
         sl = slice(b0, b0 + 4)
         lo, n = win.blo[sl].long(), win.bn[sl].long()
@@ -184,18 +200,21 @@ def _tests_made(win, tile_h: int, n_cols: int, width: int) -> int:
                 y0 = (t_px + gy).float() + 0.5             # (T,)
                 x1 = (c_px + gx + gw - 1).float() + 0.5
                 y1 = (t_px + gy + gh - 1).float() + 0.5
-                px = min(gw, col_w - gx) * min(gh, tile_h - gy)
+                pc, pr = min(gw, col_w - gx), min(gh, tile_h - gy)
+                kept = 0
                 live = cull_keeps(
                     fm[:, :, :, None], x0[:, None, None],
                     x1[:, None, None], y0[:, None, None, None],
                     y1[:, None, None, None])            # (S,T,C,64,128)
-                total += int((live & bits[sl][..., None]).sum()) * px
+                kept += int((live & bits[sl][..., None]).sum())
                 for f, valid in beyond:
                     live = cull_keeps(f[:, :, :, None], x0[:, None],
                                       x1[:, None], y0[:, None, None],
                                       y1[:, None, None])    # (S,T,C,128)
-                    total += int((live & valid[:, :, None, None]).sum()) * px
-    return total
+                    kept += int((live & valid[:, :, None, None]).sum())
+                tests += kept * pc * pr
+                ops += kept * (TEST_ADDS * pc * pr + AXIS_OPS * (pc + pr))
+    return tests, ops
 
 
 def _inputs(cfg, bfm, coeff, order: str):
@@ -364,12 +383,13 @@ def _check_raster(name, main_batch, cfg, assets, rng):
               f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
               f"max|err|={err:.3g} (tri_id exact)")
         if order == "raster_rows":
-            made = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+            made, n_ops = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
             print(f"{name}[{order}] tests made {made} of the mask walk's "
-                  f"{pairs} ({made / pairs:.4f})")
+                  f"{pairs} ({made / pairs:.4f}), {n_ops / made:.3f} f32 "
+                  f"ops a test")
             bound_ms, bound_by = _bound(
                 _raster_bytes(win, got, rec_fields, cfg.raster_cols,
-                              assets.n_faces), made * PAIR_FLOPS, name)
+                              assets.n_faces), n_ops, name)
             result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
         main[order] = (win, rec, got)
@@ -497,7 +517,7 @@ def check_wide_band(cfg, assets):
         print(f"wide band {name}: batch {WIDE_BATCH} tile_h {WIDE_TILE_H} x "
               f"one {s}-px column equal to the plain version (max|err| "
               f"{err:.3g}), {ms:.4f} ms")
-    print(f"wide band: {_tests_made(win, WIDE_TILE_H, 1, s)} tests made, "
+    print(f"wide band: {_tests_made(win, WIDE_TILE_H, 1, s)[0]} tests made, "
           f"mask walk {_live_pairs(win, wcfg)}")
     del bfm, rec, win
     torch.cuda.empty_cache()
@@ -704,7 +724,7 @@ def check_floor(cfg, assets):
               n_faces=assets.n_faces)
     live = int(_popcount(win.cmask).sum())
     added = win.cmask.numel() * 32 - live    # chunks the saturated masks add
-    n_ops = _tests_made(win, fcfg.tile_h, fcfg.raster_cols, s) * PAIR_FLOPS
+    n_ops = _tests_made(win, fcfg.tile_h, fcfg.raster_cols, s)[1]
     for name, (kernel, plain, _, rec_fields) in _raster_kernels().items():
         got = kernel(win, rec, **kw)
         torch.cuda.synchronize()
@@ -729,11 +749,36 @@ def check_floor(cfg, assets):
     torch.cuda.empty_cache()
 
 
+def _ptxas_lines(log: str):
+    """The register, stack and spill lines of a kernel's ptxas log."""
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def _sass_mix(name: str) -> str:
+    """The opcode counts of a built kernel's machine code (cuobjdump
+    -sass of its library), most frequent first."""
+    from facerecon_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return "(no cuobjdump beside nvcc)"
+    run = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    if run.returncode != 0:
+        return f"(cuobjdump exited {run.returncode})"
+    sass = run.stdout
+    ops = collections.Counter(re.findall(
+        r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass,
+        re.M))
+    return ", ".join(f"{op} {n}" for op, n in ops.most_common())
+
+
 def check_ctz_walk():
     """K6 against its plain version at the probe's shape, exactly equal
     for each live-bit count; then the timed probe run (the counters
     reset just before and read just after). Returns the kernel line's
-    numbers (at WALK_REPORTED live bits) and the launch counts."""
+    numbers (at WALK_REPORTED live bits; the bound of the per-program
+    walk the probe makes) and the launch counts."""
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import probes
     rng = np.random.default_rng(0)
@@ -786,9 +831,21 @@ def check_ctz_walk():
           f"{times[WALK_REPORTED]:.4f} ms, plain version {plain_ms:.4f} ms, "
           f"its final amin alone {amin_ms:.4f} ms")
     out = probes.ctz_walk(mask, setup)
+    # the probe's work: each program tests each of its live chunks
     n_tests = WALK_PROGS * WALK_REPORTED * probes.CHUNK * probes.COL_PX
     bound_ms, bound_by = _bound(_nbytes(mask, setup, out),
-                                n_tests * WALK_FLOPS, "ctz_walk")
+                                n_tests * WALK_FLOPS,
+                                "ctz_walk (per-program walk)")
+    # the function alone: each distinct live chunk tested once, its
+    # minima shared by the programs (the masked min not counted)
+    chunks = int(on.any(dim=0).sum())
+    fn_ms, fn_by = _bound(
+        _nbytes(mask, out) + chunks * probes.CHUNK * 6 * 4,
+        chunks * probes.CHUNK * probes.COL_PX * WALK_FLOPS,
+        "ctz_walk (function alone)")
+    print(f"ctz_walk bound: per-program walk {bound_ms:.4f} ms by "
+          f"{bound_by} (the kernel line's); the function alone, {chunks} "
+          f"distinct chunks, {fn_ms:.6f} ms by {fn_by}")
     return dict(ms=times[WALK_REPORTED], plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 max_abs_err=0.0), launches
@@ -1078,9 +1135,9 @@ def main() -> int:
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in _ptxas_lines(log):
+            print(f"  {name}: {line}")
+        print(f"  {name} SASS opcodes: {_sass_mix(name)}")
 
     cfg = default_config()
     assets = synthetic_bfm(cfg, 0)

@@ -479,53 +479,59 @@ def _row_order(faces, row_faces, row_id):
 
 
 def _rasterize(core, records, verts_ndc, faces, height, width, tile_h,
-               n_cols, row_faces, row_id):
+               n_cols, cull_backfaces, row_faces, row_id):
     row_faces, row_id = _row_order(faces, row_faces, row_id)
     with torch.no_grad():
         win = band_windows(verts_ndc, row_faces, row_id, height, width,
-                           tile_h, n_cols)
+                           tile_h, n_cols, cull_backfaces)
         return core(win, records.contiguous(), height=height, width=width,
                     tile_h=tile_h, n_cols=n_cols, n_faces=faces.shape[0])
 
 
 def rasterize_shaded(records, verts_ndc, faces, *, height: int, width: int,
-                     tile_h: int, n_cols: int = 1, row_faces=None,
+                     tile_h: int, n_cols: int = 1,
+                     cull_backfaces: bool = False, row_faces=None,
                      row_id=None):
     """Fused raster + in-kernel shading, the inference hot path.
 
     records (B, 24, padded_rows(F')) f32 in raster row order; verts_ndc
     (B, N, 3); faces (F, 3); row_faces/row_id the static raster row order
-    (identity when None). Returns (tri_id (B,H,W) int32, color (B,H,W,3)
-    f32, bary (B,H,W,3) f32). Runs on the device of its inputs; no
-    gradients."""
+    (identity when None); cull_backfaces drops the faces of positive
+    screen area in the binning. Returns (tri_id (B,H,W) int32, color
+    (B,H,W,3) f32, bary (B,H,W,3) f32). Runs on the device of its inputs;
+    no gradients."""
     return _rasterize(shade_windows, records, verts_ndc, faces, height,
-                      width, tile_h, n_cols, row_faces, row_id)
+                      width, tile_h, n_cols, cull_backfaces, row_faces,
+                      row_id)
 
 
 def rasterize_shaded_reference(records, verts_ndc, faces, *, height: int,
                                width: int, tile_h: int, n_cols: int = 1,
-                               row_faces=None, row_id=None):
+                               cull_backfaces: bool = False, row_faces=None,
+                               row_id=None):
     """rasterize_shaded through the plain version on any device."""
     return _rasterize(shade_windows_reference, records, verts_ndc, faces,
-                      height, width, tile_h, n_cols, row_faces, row_id)
+                      height, width, tile_h, n_cols, cull_backfaces,
+                      row_faces, row_id)
 
 
 def rasterize_select(records, verts_ndc, faces, *, height: int, width: int,
-                     tile_h: int, n_cols: int = 1, row_faces=None,
+                     tile_h: int, n_cols: int = 1,
+                     cull_backfaces: bool = False, row_faces=None,
                      row_id=None):
     """Fused raster + winner-record select, the training render's hot
     path (twin of the reference's rasterize_select).
 
     records (B, 24, padded_rows(F')) f32 in raster row order; verts_ndc
     (B, N, 3); faces (F, 3); row_faces/row_id the static raster row order
-    (identity when None). Returns (tri_id (B,H,W) int32, row (B,H,W)
-    int32, sel (B,20,H,W) f32). Differentiable in `records` only:
+    (identity when None); cull_backfaces as in rasterize_shaded. Returns
+    (tri_id (B,H,W) int32, row (B,H,W) int32, sel (B,20,H,W) f32). Differentiable in `records` only:
     `verts_ndc` is detached (the binning and the z-test carry no
     gradient) and tri_id is frozen."""
     row_faces, row_id = _row_order(faces, row_faces, row_id)
     with torch.no_grad():
         win = band_windows(verts_ndc.detach(), row_faces, row_id, height,
-                           width, tile_h, n_cols)
+                           width, tile_h, n_cols, cull_backfaces)
     return RasterizeSelect.apply(records.contiguous(), win, height, width,
                                  tile_h, n_cols, faces.shape[0])
 

@@ -39,10 +39,20 @@ class Pipeline:
     @torch.no_grad()
     def reconstruct(self, images, background: Optional[torch.Tensor] = None):
         """images (B,H,W,3) in [0,1] (tensor or array) -> (coeff vector
-        (B, n_coeff), Coeffs, RenderOut) on the pipeline's device."""
+        (B, n_coeff), Coeffs, RenderOut) on the pipeline's device.
+
+        The model runs in eval mode, as the reference's reconstruct runs
+        it with train=False: a BatchNorm model normalises with its running
+        statistics and leaves them as they are. The model's mode is
+        restored afterwards."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
-        coeff_vec = self.model(images)
+        was = self.model.training
+        self.model.eval()
+        try:
+            coeff_vec = self.model(images)
+        finally:
+            self.model.train(was)
         coeffs = split_coeff(coeff_vec, self.cfg)
         out = render_coeffs(coeffs, self.bfm, self.cfg,
                             background=images if background is None

@@ -52,12 +52,14 @@ def card():
 
 
 def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
-                   tz=None, away=False):
+                   tz=None, away=False, turned=False, cull=False):
     """Records and windows at tiny_config(n_vertices=6000): 11.7k faces,
     so a shuffled order overflows the 64-chunk column masks. tile_h and
     n_cols override the config's bands; tz sets every face's depth
     translation (9.0: 1 from the camera, rows of several hundred px);
-    away moves the last image's face out of frame."""
+    away moves the last image's face out of frame; turned turns it 2.5
+    rad about the vertical axis (mostly back faces show); cull bins with
+    cull_backfaces."""
     cfg = tiny_config(n_vertices=6000)
     cfg = dataclasses.replace(cfg, tile_h=tile_h or cfg.tile_h,
                               raster_cols=n_cols or cfg.raster_cols)
@@ -68,6 +70,8 @@ def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
         coeff[:, -1] = tz
     if away:
         coeff[-1, -3] = 100.0
+    if turned:
+        coeff[-1, cfg.coeff_split[2] + 1] = 2.5
     c = split_coeff(torch.as_tensor(coeff, device=card), cfg)
     geom = coeffs_to_geometry(c, bfm, cfg)
     rad = illuminate(geom.texture, geom.normals, c.gamma)
@@ -81,7 +85,7 @@ def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
     rec = pack_render_records(geom.verts_ndc, rad, rows, s, s,
                               R.padded_rows(rows.shape[0]))
     win = R.band_windows(geom.verts_ndc, rows, rid, s, s, cfg.tile_h,
-                         cfg.raster_cols)
+                         cfg.raster_cols, cull)
     if order == "shuffled":
         assert int(win.bn.max()) > 64
     kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
@@ -153,6 +157,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     _, taller, trec, tkw = _kernel_inputs(card, "raster_rows", batch=1,
                                           tile_h=136, n_cols=1)
     _hold_raster(taller, trec, tkw)
+
+
+def test_kernels_cull_backfaces_as_their_plain_versions(card):
+    """K1, K2 and K4 on windows binned with cull_backfaces (the shade and
+    select paths' flag), with an image turned to show mostly back faces:
+    each equal to its plain version, and the cull changes tri_id."""
+    _, win, rec, kw = _kernel_inputs(card, "raster_rows", turned=True,
+                                     cull=True)
+    ref = _hold_raster(win, rec, kw)
+    assert float((ref[0][0] >= 0).float().mean()) > 0.1
+    _, unculled, _, _ = _kernel_inputs(card, "raster_rows", turned=True)
+    assert not torch.equal(R.pos_windows(unculled, **kw)[0], ref[0])
 
 
 def test_reconstruct_on_card_matches_cpu(card):
@@ -307,22 +323,54 @@ def test_contract_path_on_card_matches_oracle(card):
         assert np.all(np.isinf(z[~cov]))
 
 
-def test_ctz_walk_kernel_matches_plain_version(card):
+def _walk_words(rng, n, live):
+    """n mask words of `live` set bits each, at random places."""
+    bits = np.zeros(n, np.int64)
+    for r in range(n):
+        bits[r] = int(np.sum(1 << rng.choice(32, size=live, replace=False)
+                             .astype(np.int64)))
+    return bits.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["live4", "live8", "live16", "live32",
+                                  "edge_words", "n_prog_2047",
+                                  "signed_zeros"])
+def test_ctz_walk_kernel_matches_plain_version(card, case):
+    """K6 bit for bit equal to its plain version in one launch: 2,048
+    programs of 4, 8, 16 or 32 live bits (the probe's shape); the edge
+    words (empty, bit 31 alone, every bit) among random ones; 2,047
+    programs of any bit count, a multiple of no block or wave size; and
+    triangles whose e0 and e1 are -0.0 at pixel 0 (s0, s2 < 0 and s1 = s3
+    = -0.0): covered there, and the nearest."""
     from facerecon_tpu_torch.ops import probes
     rng = np.random.default_rng(0)
-    setup = torch.as_tensor(rng.standard_normal(probes.SETUP_SHAPE),
-                            dtype=torch.float32, device=card)
-    words = np.array([0, 1 << 31, 0xFFFFFFFF, 1, 0x0F0F0F0F],
-                     np.uint32).view(np.int32)
-    mask = torch.as_tensor(np.concatenate(
-        [words, rng.integers(0, 2 ** 32, 59, dtype=np.uint64).astype(
-            np.uint32).view(np.int32)]), device=card)
+    st = rng.standard_normal(probes.SETUP_SHAPE)
+    if case == "signed_zeros":
+        cols = np.arange(5, 32 * probes.CHUNK, 37)
+        for f in (0, 2):
+            st[f, cols] = -np.abs(st[f, cols])
+            st[f + 1, cols] = -0.0
+        st[5, cols] = -100.0 - np.arange(cols.size)
+    setup = torch.as_tensor(st, dtype=torch.float32, device=card)
+    edge = np.array([0, 1 << 31, 0xFFFFFFFF, 1, 0x0F0F0F0F],
+                    np.uint32).view(np.int32)
+    if case.startswith("live"):
+        words = _walk_words(rng, 2048, int(case[4:]))
+    else:
+        n = 64 if case == "edge_words" else 2047
+        words = np.concatenate([edge, rng.integers(
+            0, 2 ** 32, n - 2 * edge.size, dtype=np.uint64).astype(
+            np.uint32).view(np.int32), edge])
+    mask = torch.as_tensor(words, device=card)
     before = _build.LAUNCHES["ctz_walk"]
     got = probes.ctz_walk(mask, setup)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["ctz_walk"] == before + 1
     ref = probes.ctz_walk_reference(mask, setup)
+    assert got.shape == (words.size, probes.COL_PX)
     assert bool(torch.isfinite(ref).any())
+    if case == "signed_zeros":
+        assert bool((ref[:, 0] <= -100.0).any())
     assert torch.equal(got, ref)
 
 

@@ -88,6 +88,44 @@ def test_reconstruct_matches_reference(cfg, assets):
     np.testing.assert_array_equal(img[tid < 0], images[tid < 0])
 
 
+def test_reconstruct_on_a_train_pipeline_runs_in_eval_mode(cfg, assets):
+    """After a training step, reconstruct on the BatchNorm pipeline
+    normalises with the running statistics and leaves them bit for bit
+    as they were (the reference's reconstruct applies train=False); its
+    coefficients are regress_coeffs(train=False)'s, and the model's mode
+    is what it was before."""
+    from facerecon_tpu_torch.data.synthetic import render_batch
+    from facerecon_tpu_torch.pipeline import (make_train_pipeline,
+                                              regress_coeffs)
+    from facerecon_tpu_torch.train import init_state, make_train_step
+    pipe = make_train_pipeline(cfg, assets, device="cpu",
+                               dtype=torch.float32, depth=18)
+    state = init_state(pipe, total_steps=50)
+    gt = sample_coeffs(np.random.default_rng(0), cfg, 2)
+    images, lmk = render_batch(gt, pipe.bfm, cfg)
+    make_train_step(pipe)(state, images, lmk)
+    assert pipe.model.training
+
+    def stats():
+        return {n: b.clone() for n, b in pipe.model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))}
+
+    before = stats()
+    assert before
+    cv, _, out = pipe.reconstruct(images)
+    assert pipe.model.training
+    after = stats()
+    assert all(torch.equal(before[n], after[n]) for n in before)
+    with torch.no_grad():
+        ref = regress_coeffs(pipe, images, train=False)
+    assert torch.equal(cv, ref)
+    assert float(out.mask.mean()) > 0.1
+    # the eval-mode pipeline keeps its mode too
+    pipe.model.eval()
+    pipe.reconstruct(images)
+    assert not pipe.model.training
+
+
 def test_entry_points_need_a_card_unless_asked_for_cpu(cfg, assets):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -58,10 +58,11 @@ def _port_render(cfg, geom, c, faces, rows, rid, reference=False):
               row_id=rid)
 
 
-def test_plain_version_matches_pallas_shaded(cfg, assets):
+def _hold_shaded_against_pallas(cfg, assets, coeff, cull_backfaces=False):
     """Same 24-field record (the reference's _pack_render_records) and the
-    same ndc vertices into both rasterize_shaded implementations."""
-    coeff = make_coeff(cfg, np.random.default_rng(7), batch=2)
+    same ndc vertices into both rasterize_shaded implementations (the
+    port's wrapper on the CPU and its plain version, each bit for bit the
+    other). Returns the port's outputs and the port's inputs."""
     bfm = G.device_bfm(assets)
     c = split_coeff(jnp.asarray(coeff), cfg)
     geom = G.coeffs_to_geometry(c, bfm, cfg)
@@ -72,16 +73,20 @@ def test_plain_version_matches_pallas_shaded(cfg, assets):
                                RP.padded_rows(rows.shape[0]))
     tid, color, bary = RP.rasterize_shaded(
         rec, geom.verts_ndc, bfm.faces, height=h, width=w,
-        tile_h=cfg.tile_h, n_cols=cfg.raster_cols, row_faces=rows,
-        row_id=rid)
+        tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+        cull_backfaces=cull_backfaces, row_faces=rows, row_id=rid)
     tbfm = TG.device_bfm(assets, "cpu")
-    ttid, tcolor, tbary = TR.rasterize_shaded_reference(
-        torch.from_numpy(np.array(rec)),
-        torch.from_numpy(np.array(geom.verts_ndc)), tbfm.faces, height=h,
-        width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
-        row_faces=tbfm.raster_rows, row_id=tbfm.raster_row_id)
+    args = (torch.from_numpy(np.array(rec)),
+            torch.from_numpy(np.array(geom.verts_ndc)), tbfm.faces)
+    kw = dict(height=h, width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+              row_faces=tbfm.raster_rows, row_id=tbfm.raster_row_id)
+    got = TR.rasterize_shaded_reference(*args, cull_backfaces=cull_backfaces,
+                                        **kw)
+    for a, b in zip(TR.rasterize_shaded(*args, cull_backfaces=cull_backfaces,
+                                        **kw), got):
+        assert torch.equal(a, b)
+    ttid, tcolor, tbary = got
     tid = np.asarray(tid)
-    assert (tid >= 0).mean() > 0.1
     np.testing.assert_array_equal(ttid.numpy(), tid)
     np.testing.assert_allclose(tcolor.numpy(), np.asarray(color), rtol=0,
                                atol=1e-4)
@@ -91,6 +96,38 @@ def test_plain_version_matches_pallas_shaded(cfg, assets):
     np.testing.assert_allclose(tbary.numpy().sum(-1)[cov], 1.0, atol=1e-5)
     assert np.all(tbary.numpy()[~cov] == 0) and np.all(
         tcolor.numpy()[~cov] == 0)
+    return got, args, kw
+
+
+def test_plain_version_matches_pallas_shaded(cfg, assets):
+    coeff = make_coeff(cfg, np.random.default_rng(7), batch=2)
+    (tid, _, _), _, _ = _hold_shaded_against_pallas(cfg, assets, coeff)
+    assert (tid.numpy() >= 0).mean() > 0.1
+
+
+def turned_coeff(cfg, seed):
+    """Two images: the first posed as make_coeff poses it, the second
+    turned 2.5 rad about the vertical axis, so that the faces it shows
+    are mostly back faces."""
+    coeff = make_coeff(cfg, np.random.default_rng(seed), batch=2)
+    coeff[1, cfg.coeff_split[2] + 1] = 2.5
+    return coeff
+
+
+def test_shaded_culls_backfaces_as_the_reference(cfg, assets):
+    """cull_backfaces=True through rasterize_shaded equals the reference's
+    Pallas rasterize_shaded with the flag, its tri_id is the contract
+    path's (rasterize_batch) with the flag, and the flag culls: tri_id
+    differs from the unculled one."""
+    (tid, _, _), args, kw = _hold_shaded_against_pallas(
+        cfg, assets, turned_coeff(cfg, 12), cull_backfaces=True)
+    assert (tid[0] >= 0).float().mean() > 0.1
+    assert bool((tid[1] >= 0).any())
+    unculled = TR.rasterize_shaded(*args, **kw)[0]
+    assert not torch.equal(unculled, tid)
+    contract = TR.rasterize_batch(args[1], args[2], cull_backfaces=True,
+                                  **kw)[0]
+    assert torch.equal(contract, tid)
 
 
 @pytest.mark.parametrize("case", ["raster_rows", "shuffled", "roll45"])

@@ -73,6 +73,8 @@ def _inputs(cfg, assets, batch, case="raster_rows", seed=7):
         coeff[:, -1] = 8.5
     if case == "empty":      # the last image's face far out of frame
         coeff[-1, -3] = 100.0
+    if case == "turned":     # the last image shows mostly back faces
+        coeff[-1, cfg.coeff_split[2] + 1] = 2.5
     bfm = G.device_bfm(assets)
     c = split_coeff(jnp.asarray(coeff), cfg)
     geom = G.coeffs_to_geometry(c, bfm, cfg)
@@ -89,32 +91,39 @@ def _inputs(cfg, assets, batch, case="raster_rows", seed=7):
     return bfm, geom, rad, rows, rid, rec
 
 
-def _port_select(cfg, bfm, rec, geom, rows, rid, records=None):
+def _port_select(cfg, bfm, rec, geom, rows, rid, records=None,
+                 cull_backfaces=False):
     h = w = cfg.image_size
     return TR.rasterize_select(
         _t(rec) if records is None else records, _t(geom.verts_ndc),
         _t(bfm.faces, torch.int64), height=h, width=w, tile_h=cfg.tile_h,
-        n_cols=cfg.raster_cols, row_faces=_t(rows, torch.int64),
-        row_id=_t(rid, torch.int64))
+        n_cols=cfg.raster_cols, cull_backfaces=cull_backfaces,
+        row_faces=_t(rows, torch.int64), row_id=_t(rid, torch.int64))
 
 
-@pytest.mark.parametrize("case", ["raster_rows", "shuffled", "roll45"])
-def test_select_matches_pallas_select(cfg, assets, case):
-    bfm, geom, _, rows, rid, rec = _inputs(cfg, assets, 1, case)
+def _hold_select_against_pallas(cfg, assets, batch, case,
+                                cull_backfaces=False):
+    """The port's rasterize_select against the reference's Pallas one on
+    the same inputs and flag. Returns the port's (tri_id, row, sel) and
+    the inputs."""
+    inputs = _inputs(cfg, assets, batch, case)
+    bfm, geom, _, rows, rid, rec = inputs
     h = w = cfg.image_size
     tid, sel = RP.rasterize_select(rec, geom.verts_ndc, bfm.faces, h, w,
-                                   cfg.tile_h, n_cols=cfg.raster_cols,
+                                   cfg.tile_h, cull_backfaces=cull_backfaces,
+                                   n_cols=cfg.raster_cols,
                                    row_faces=rows, row_id=rid)
     ref = _ref_planes(sel, h, w, cfg.tile_h)
     ref_row = (ref[:, 45] + ref[:, 46] * 256 + ref[:, 47] * 65536
                ).astype(np.int64) - 1
-    ttid, trow, tsel = _port_select(cfg, bfm, rec, geom, rows, rid)
+    out = _port_select(cfg, bfm, rec, geom, rows, rid,
+                       cull_backfaces=cull_backfaces)
+    ttid, trow, tsel = out
     tid = np.asarray(tid)
-    assert (tid >= 0).mean() > 0.1
     np.testing.assert_array_equal(ttid.numpy(), tid)
     np.testing.assert_array_equal(trow.numpy(), ref_row)
     got = tsel.numpy()
-    assert got.shape == (1, 20, h, w)
+    assert got.shape == (batch, 20, h, w)
     affine = ref[:, 18:24] + ref[:, 24:30] + ref[:, 30:36]
     anchor = np.stack([ref[:, 36:39].sum(1), ref[:, 39:42].sum(1)], 1)
     np.testing.assert_allclose(got[:, 9:15], affine, rtol=0, atol=1e-6)
@@ -127,6 +136,33 @@ def test_select_matches_pallas_select(cfg, assets, case):
     assert np.all(trow.numpy()[bg] == -1)
     np.testing.assert_array_equal(np.asarray(rid)[trow.numpy()[~bg]],
                                   tid[~bg])
+    return out, inputs
+
+
+@pytest.mark.parametrize("case", ["raster_rows", "shuffled", "roll45"])
+def test_select_matches_pallas_select(cfg, assets, case):
+    (tid, _, _), _ = _hold_select_against_pallas(cfg, assets, 1, case)
+    assert (tid.numpy() >= 0).mean() > 0.1
+
+
+def test_select_culls_backfaces_as_the_reference(cfg, assets):
+    """cull_backfaces=True through rasterize_select equals the reference's
+    Pallas rasterize_select with the flag, its tri_id is the contract
+    path's (rasterize_batch) with the flag, and the flag culls: tri_id
+    differs from the unculled one."""
+    (tid, _, _), (bfm, geom, _, rows, rid, rec) = (
+        _hold_select_against_pallas(cfg, assets, 2, "turned",
+                                    cull_backfaces=True))
+    assert (tid[0] >= 0).float().mean() > 0.1
+    assert bool((tid[1] >= 0).any())
+    assert not torch.equal(
+        _port_select(cfg, bfm, rec, geom, rows, rid)[0], tid)
+    h = w = cfg.image_size
+    contract = TR.rasterize_batch(
+        _t(geom.verts_ndc), _t(bfm.faces, torch.int64), height=h, width=w,
+        tile_h=cfg.tile_h, n_cols=cfg.raster_cols, cull_backfaces=True,
+        row_faces=_t(rows, torch.int64), row_id=_t(rid, torch.int64))[0]
+    assert torch.equal(contract, tid)
 
 
 def _check_adjoint_case(case, pos, tile_h):
