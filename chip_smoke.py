@@ -55,7 +55,29 @@ Phases (any failed check raises, and the script exits non-zero):
      live bits), exactly equal, then timed (counters reset just before):
      ns per live chunk; its bound is that of the per-program walk the
      probe makes, with the function's own bound printed beside it.
-  9. prints the per-kernel JSON line, the card line, and as the last line
+  9. the fit driver (fit.make_fit_fn, batch 8 synthetic targets, 50
+     Adam steps, landmarks on): the counted, timed fit (one K2 and one K3
+     launch a step, one more K2 for the final loss; the loss falls), then
+     fit.run on a PNG folder of the 8 faces, whose meshes load back.
+ 10. the train driver on a folder of 64 rendered PNGs, each warped by a
+     random similarity, with 68-point side-cars: --data-dir --align 68pt
+     --batch 32 --chunk 2 --steps 4 --ckpt-dir (cfg.checkpoint_every 2),
+     counted (one K2 and one K3 launch a step); a fresh trainer restored
+     from the checkpoint equals it bit for bit; --resume --steps 2 goes
+     on to step 6 with finite losses; then ms a step on the uint8 and
+     float32 wires.
+ 11. the infer driver on 4 synthetic faces from a crafted checkpoint
+     (perturbed BatchNorm statistics), BN and --fused, --overlay
+     --depth: every output file, one K1 and one K2 launch a run, the
+     fused coefficients within FUSED_BF16 of the BN-eval ones, finite
+     landmark RMSE.
+     In phases 9-11 the kernel wrappers record the arguments of their
+     first call on the driver's path, and each kernel is held against
+     its plain version on those arguments after the counts are read
+     (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref|). The phases
+     write under one tempfile.mkdtemp(), removed at the end, and each
+     prints its launch counts above the kernels line.
+ 12. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Uses random weights from a seed and random images, as bench.py does.
 """
@@ -63,12 +85,18 @@ Uses random weights from a seed and random images, as bench.py does.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import unittest.mock
 from pathlib import Path
 
 import numpy as np
@@ -109,6 +137,13 @@ WIDE_BATCH = 4
 WALK_PROGS = 2048    # K6: benchmarks/ctzloop_probe.py's shape
 WALK_LIVE = (4, 8, 16, 32)
 WALK_REPORTED = 8    # live bits of the K6 line in the kernels JSON
+FIT_BATCH = 8        # fit driver: synthetic targets
+FIT_DRIVER_STEPS = 50    # fit driver: Adam steps (lr 5e-3)
+INFER_FACES = 4      # infer driver: synthetic faces
+FUSED_BF16 = 5e-2    # fused vs BN-eval coefficients, both bf16 (x max|c|)
+TRAIN_DIR_FACES = 64     # train driver: PNG faces in the folder
+TRAIN_DIR_BATCH = 32     # train driver: batch
+TRAIN_DIR_STEPS = 12     # train driver: steps timed on each wire
 DEVICE = "cuda"
 
 
@@ -1116,6 +1151,460 @@ def _train_stage_split(pipe, state, images, lmk):
           + f"; total {total_ms:.3f}")
 
 
+# the path's kernel wrappers in ops.rasterize -> the kernel each launches
+_WRAPPERS = {"shade_windows": "raster_shade",
+             "select_windows": "raster_select",
+             "select_grad": "select_grad"}
+
+
+def _copy(x):
+    """A detached copy of a wrapper argument (tensors, Windows tuples)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, tuple):
+        items = map(_copy, x)
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@contextlib.contextmanager
+def _recording(*names):
+    """While open, each named wrapper of ops.rasterize keeps a copy of the
+    arguments of its first call and passes every call on unchanged, so
+    the path runs (and counts its launches) as it does without it.
+    Yields wrapper name -> (args, kwargs), or None until it is called."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    seen = dict.fromkeys(names)
+    orig = {n: getattr(R, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            if seen[name] is None:
+                seen[name] = (_copy(args), dict(kw))
+            return fn(*args, **kw)
+        return call
+    for n in names:
+        setattr(R, n, wrap(n, orig[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(R, n, orig[n])
+
+
+def _hold_recorded(seen, where) -> dict:
+    """Each recorded first call's kernel against its plain version on the
+    same arguments: K1 tri_id exact, color and bary within 1e-6; K2
+    tri_id, row and sel exactly equal; K3 within 1e-5 x max |ref|.
+    Fails if a wrapper the recording was opened for was never called.
+    Returns kernel name -> max |err|; prints one line."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    errs, parts = {}, []
+    for wrapper, call in seen.items():
+        if call is None:
+            raise AssertionError(f"{where}: {wrapper} was never called")
+        args, kw = call
+        name = _WRAPPERS[wrapper]
+        got = getattr(R, wrapper)(*args, **kw)
+        ref = getattr(R, wrapper + "_reference")(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "select_grad":
+            err, scale = float((got - ref).abs().max()), float(
+                ref.abs().max())
+            if not (scale > 0 and err <= 1e-5 * scale):
+                raise AssertionError(f"select_grad differs from the plain "
+                                     f"version by {err} (max |ref| "
+                                     f"{scale}; {where})")
+        else:
+            err = _hold(name, got, ref, where)
+        errs[name] = err
+        # args[1]: the records (B, 24, rows) or K3's cotangent (B, 20, H, W)
+        parts.append(f"{name} on {tuple(args[1].shape)} max|err| {err:.3g}")
+        del got, ref
+    print(f"{where}: the path's first call of each kernel held against "
+          f"its plain version: " + ", ".join(parts))
+    return errs
+
+
+def _write_faces(root, images, lmk):
+    """Images (N,S,S,3) on any device and landmarks -> PNG files with
+    68-point side-cars."""
+    from PIL import Image
+    os.makedirs(root)
+    for i, (img, lm) in enumerate(zip(images, lmk)):
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(root, f"face_{i:03d}.png"))
+        np.savetxt(os.path.join(root, f"face_{i:03d}.txt"), lm, fmt="%.4f")
+
+
+def check_fit(cfg, assets, tmp):
+    """The fit driver at full width: make_fit_fn on FIT_BATCH synthetic
+    targets, FIT_DRIVER_STEPS Adam steps at lr 5e-3 with landmarks, the
+    counters reset just before the timed fit and read just after (one K2
+    and one K3 launch a step, one more K2 for the final loss); the
+    arguments of its first K2 and K3 calls are recorded and the kernels
+    held against their plain versions on them; the loss falls and falls
+    at 95% of steps. Then fit.run on a PNG folder of FIT_BATCH rendered
+    faces, whose meshes must load back. Returns the launch counts."""
+    from facerecon_tpu_torch import fit
+    from facerecon_tpu_torch.data.synthetic import render_batch, sample_coeffs
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    from facerecon_tpu_torch.utils.obj_io import load_obj
+    bfm = device_bfm(assets, DEVICE)
+    gt = sample_coeffs(np.random.default_rng(4), cfg, FIT_BATCH)
+    target, lmk = render_batch(gt, bfm, cfg)
+    zero = torch.zeros((FIT_BATCH, cfg.n_coeff), device=DEVICE)
+    fit.make_fit_fn(cfg, 2, lr=5e-3)(zero, bfm, target, lmk)   # warm-up
+    torch.cuda.synchronize()
+    fn = fit.make_fit_fn(cfg, FIT_DRIVER_STEPS, lr=5e-3)
+    with _recording("select_windows", "select_grad") as seen:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn(zero, bfm, target, lmk)
+        losses = res.losses.cpu().numpy()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    _hold_recorded(seen, f"fit step 1 (batch {FIT_BATCH})")
+    del seen
+    ms = dt * 1e3 / FIT_DRIVER_STEPS
+    print(f"fit: {ms:.3f} ms/step, {FIT_BATCH * FIT_DRIVER_STEPS / dt:.1f} "
+          f"faces x steps/s (batch {FIT_BATCH}, {cfg.image_size} px, "
+          f"{FIT_DRIVER_STEPS} steps, final loss included) on {_card_line()}")
+    print(f"fit losses: first {losses[0]:.5f} last {losses[-1]:.5f}; "
+          f"launches {launches}")
+    want = {"raster_shade": 0, "raster_select": FIT_DRIVER_STEPS + 1,
+            "select_grad": FIT_DRIVER_STEPS, "raster_pos": 0, "ctz_walk": 0}
+    if launches != want:
+        raise AssertionError(f"the fit launched {launches}, not {want}")
+    short = fit.make_fit_fn(cfg, 5, lr=5e-3)
+    busy = _busy_ms(lambda: short(zero, bfm, target, lmk)) / 6
+    print(f"fit: device busy {busy:.3f} ms a step (torch.profiler, 5 steps "
+          f"and the final loss) of {ms:.3f} ms ({100 * busy / ms:.1f}%)")
+    monotone = float(np.mean(np.diff(losses) <= 1e-4))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and monotone > 0.9):
+        raise AssertionError(f"the fit loss did not fall (monotone share "
+                             f"{monotone}): {losses}")
+
+    root, out = os.path.join(tmp, "fit_photos"), os.path.join(tmp, "fit_out")
+    _write_faces(root, target.cpu().numpy(), lmk.cpu().numpy())
+    rep = fit.run(fit.parse_args(["--images", root, "--landmarks", "--out",
+                                  out, "--steps", str(FIT_DRIVER_STEPS),
+                                  "--device", DEVICE]))
+    if not (rep["batch"] == FIT_BATCH and rep["loss_last"] < rep["loss_first"]
+            and np.isfinite(rep["landmark_rmse_px"])):
+        raise AssertionError(f"fit.run on a photo folder: {rep}")
+    for i in range(FIT_BATCH):
+        v, c, f = load_obj(os.path.join(out, f"face_{i:03d}_fit.obj"))
+        if not (v.shape == c.shape == (assets.n_vertices, 3)
+                and np.array_equal(f, assets.faces)
+                and np.isfinite(v).all()):
+            raise AssertionError(f"face_{i:03d}_fit.obj does not load back")
+    del bfm, target, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _crafted_checkpoint(cfg, assets, path):
+    """A training checkpoint of the BatchNorm ResNet-50 whose fold is not
+    trivial: every BN's scale, shift and running statistics perturbed
+    (seeded) and a head whose coefficients have a std of ~0.1 on random
+    images."""
+    from facerecon_tpu_torch.checkpoint import CheckpointManager
+    from facerecon_tpu_torch.models.resnet import BatchNorm
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    pipe = make_train_pipeline(cfg, assets, device=DEVICE)
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(n):
+        return torch.randn(n, generator=gen).to(DEVICE)
+    with torch.no_grad():
+        for mod in pipe.model.modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.weight.numel()
+                mod.weight.copy_(1.0 + 0.1 * randn(n))
+                mod.bias.copy_(0.1 * randn(n))
+                mod.running_mean.copy_(0.1 * randn(n))
+                mod.running_var.copy_((1.0 + 0.1 * randn(n)).abs() + 0.01)
+        head = pipe.model.head
+        head.weight.copy_(torch.randn(head.weight.shape, generator=gen))
+        images = torch.rand((4, cfg.image_size, cfg.image_size, 3),
+                            generator=gen).to(DEVICE)
+        pipe.model.eval()
+        head.weight.mul_(0.1 / float(pipe.model(images).std()))
+    CheckpointManager(path).save(0, {"model": pipe.model.state_dict(),
+                                     "step": 0})
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def check_infer(cfg, assets, tmp):
+    """The infer driver at full width on INFER_FACES synthetic faces, with
+    --overlay --depth, from a crafted checkpoint: once on the BatchNorm
+    model and once --fused. Every output file exists, the fused
+    coefficients agree with the BN-eval ones within FUSED_BF16 x
+    max|c|, the landmark RMSE is finite, and each run launched K2 (its
+    one reconstruct) and K1 (the synthetic render), each held against its
+    plain version on the arguments the run gave it. Returns the launch
+    counts of the BN run."""
+    from facerecon_tpu_torch import infer
+    from facerecon_tpu_torch.ops import _build
+    ck = os.path.join(tmp, "infer_ck")
+    _crafted_checkpoint(cfg, assets, ck)
+    coeffs, counts = {}, {}
+    for mode in ("bn", "fused"):
+        out = os.path.join(tmp, f"infer_{mode}")
+        argv = ["--synthetic", str(INFER_FACES), "--out", out, "--ckpt", ck,
+                "--overlay", "--depth", "--device", DEVICE] + (
+                    ["--fused"] if mode == "fused" else [])
+        with _recording("shade_windows", "select_windows") as seen:
+            _build.reset_launches()
+            rep = infer.run(infer.parse_args(argv))
+            counts[mode] = dict(_build.LAUNCHES)
+        if counts[mode] != {"raster_shade": 1, "raster_select": 1,
+                            "select_grad": 0, "raster_pos": 0,
+                            "ctz_walk": 0}:
+            raise AssertionError(f"infer ({mode}) launched {counts[mode]}")
+        _hold_recorded(seen, f"infer ({mode}, {INFER_FACES} faces)")
+        del seen
+        for i in range(INFER_FACES):
+            for suffix in (".obj", "_render.png", "_landmarks.txt",
+                           "_coeffs.npy", "_overlay.png", "_depth.png"):
+                if not os.path.exists(os.path.join(
+                        out, f"synthetic_{i}{suffix}")):
+                    raise AssertionError(f"infer ({mode}) did not write "
+                                         f"synthetic_{i}{suffix}")
+        if not np.isfinite(rep["landmark_rmse_px"]):
+            raise AssertionError(f"infer ({mode}): {rep}")
+        coeffs[mode] = np.stack([np.load(os.path.join(
+            out, f"synthetic_{i}_coeffs.npy")) for i in range(INFER_FACES)])
+        print(f"infer ({mode}): {rep}")
+    diff = float(np.abs(coeffs["fused"] - coeffs["bn"]).max())
+    scale = float(np.abs(coeffs["bn"]).max())
+    print(f"infer: fused vs BN-eval coefficients max diff {diff:.4g} "
+          f"(max|c| {scale:.4g}, {diff / scale:.4g} of it; bar "
+          f"{FUSED_BF16}); launches {counts}")
+    if not (scale > 0 and diff <= FUSED_BF16 * scale):
+        raise AssertionError("the fused model disagrees with the BN model")
+    return counts["bn"]
+
+
+def _photo_folder(cfg, assets, root, n):
+    """n rendered faces, each warped by a random similarity (rotation
+    +-0.3 rad, scale 0.85-1.15, shift +-10% of the size) inside the
+    frame, as PNG with the warped 68-point side-cars: --align 68pt must
+    undo the warp."""
+    from facerecon_tpu_torch.data.preprocess import warp_affine
+    from facerecon_tpu_torch.data.synthetic import render_batch, sample_coeffs
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    bfm = device_bfm(assets, DEVICE)
+    rng = np.random.default_rng(12)
+    images, lmks = [], []
+    for _ in range(0, n, 16):
+        img, lm = render_batch(sample_coeffs(rng, cfg, 16), bfm, cfg)
+        images.append(img.cpu().numpy())
+        lmks.append(lm.cpu().numpy())
+    images, lmks = np.concatenate(images)[:n], np.concatenate(lmks)[:n]
+    size = cfg.image_size
+    warped, moved = [], []
+    for img, lm in zip(images, lmks):
+        ang, sc = rng.uniform(-0.3, 0.3), rng.uniform(0.85, 1.15)
+        rot = sc * np.array([[np.cos(ang), -np.sin(ang)],
+                             [np.sin(ang), np.cos(ang)]])
+        c = np.array([size / 2, size / 2])
+        t = c - rot @ c + rng.uniform(-0.1, 0.1, 2) * size
+        m = np.concatenate([rot, t[:, None]], axis=1).astype(np.float32)
+        warped.append(warp_affine(np.clip(img, 0, 1), m, size))
+        moved.append(np.concatenate([lm, np.ones((68, 1))], 1) @ m.T)
+    _write_faces(root, np.stack(warped), np.stack(moved))
+    del bfm
+    torch.cuda.empty_cache()
+
+
+def _run_train(argv, cfg):
+    """train.run on parsed argv with `cfg` as its default configuration,
+    its standard output captured and echoed. Returns (report, printed
+    lines)."""
+    from facerecon_tpu_torch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), unittest.mock.patch.object(
+            train, "default_config", lambda: cfg):
+        report = train.run(train.parse_args(argv))
+    text = buf.getvalue()
+    print(text, end="")
+    return report, text.splitlines()
+
+
+def _loss_lines(lines):
+    return [json.loads(x) for x in lines if x.startswith('{"step"')]
+
+
+def check_train_driver(cfg, assets, tmp):
+    """The train driver at full width on a folder of TRAIN_DIR_FACES
+    rendered 224-px PNGs, each warped by a random similarity, with
+    68-point side-cars: --data-dir --align 68pt --batch TRAIN_DIR_BATCH
+    --chunk 2 --steps 4 --ckpt-dir, with cfg.checkpoint_every 2, the
+    counters reset just before and read just after (one K2 and one K3
+    launch a step, no K1: the source is on the host), and its first K2
+    and K3 held against their plain versions on the arguments the step
+    gave them; then a fresh trainer restored from
+    the checkpoint equals it bit for bit (model, Adam, schedule, step 4),
+    and --resume --steps 2 goes on to step 6 with every loss finite.
+    Last, ms a step on the uint8 wire and on --wire-f32 (TRAIN_DIR_STEPS
+    steps each, the driver's own rate after its warm-up). Returns the
+    launch counts of the first run."""
+    from facerecon_tpu_torch import train
+    from facerecon_tpu_torch.checkpoint import CheckpointManager
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    root, ck = os.path.join(tmp, "photos"), os.path.join(tmp, "train_ck")
+    _photo_folder(cfg, assets, root, TRAIN_DIR_FACES)
+    cfg2 = dataclasses.replace(cfg, checkpoint_every=2)
+    base = ["--data-dir", root, "--align", "68pt", "--batch",
+            str(TRAIN_DIR_BATCH),
+            "--log-every", "1", "--device", DEVICE]
+    with _recording("select_windows", "select_grad") as seen:
+        _build.reset_launches()
+        _, lines = _run_train(base + ["--chunk", "2", "--steps", "4",
+                                      "--ckpt-dir", ck], cfg2)
+        launches = dict(_build.LAUNCHES)
+    if launches != {"raster_shade": 0, "raster_select": 4, "select_grad": 4,
+                    "raster_pos": 0, "ctz_walk": 0}:
+        raise AssertionError(f"the train driver launched {launches}")
+    _hold_recorded(seen, f"train driver step 1 (batch {TRAIN_DIR_BATCH})")
+    del seen
+    logged = _loss_lines(lines)
+    mgr = CheckpointManager(ck)
+    # checkpoint_every counts iterations of --chunk steps: the save at
+    # iteration 2 and the final one are both step 4
+    if [x["step"] for x in logged] != [2, 4] or mgr.steps() != [4]:
+        raise AssertionError(f"train driver: logged {logged}, saved "
+                             f"{mgr.steps()}")
+
+    # a fresh trainer restored from step 4 holds what was saved
+    saved = mgr.restore()
+    pipe = make_train_pipeline(cfg2, assets, device=DEVICE, seed=1)
+    state = train.init_state(pipe, 2, seed=1)
+    train.restore_state(mgr, pipe, state)
+    if not (state.step == saved["step"] == 4
+            and _same(pipe.model.state_dict(), saved["model"])
+            and _same(state.optimizer.state_dict(), saved["optimizer"])
+            and _same(state.scheduler.state_dict(), saved["scheduler"])):
+        raise AssertionError("the restored trainer differs from the "
+                             "checkpoint")
+    print("train driver: the restored model, Adam and schedule equal "
+          "step 4's checkpoint bit for bit")
+    del pipe, state, saved
+    torch.cuda.empty_cache()
+
+    _, lines = _run_train(base + ["--chunk", "2", "--steps", "2",
+                                  "--ckpt-dir", ck, "--resume"], cfg2)
+    logged += _loss_lines(lines)
+    if lines[0] != "resumed at step 4" or mgr.latest_step() != 6:
+        raise AssertionError(f"resume: {lines[:2]}, saved {mgr.steps()}")
+    if not all(np.isfinite(x[k]) for x in logged
+               for k in ("photo", "landmark", "reg", "gamma", "total")):
+        raise AssertionError(f"a non-finite training loss: {logged}")
+
+    for wire in ("u8", "f32"):
+        _, lines = _run_train(base + ["--steps", str(TRAIN_DIR_STEPS),
+                                      "--log-every", str(TRAIN_DIR_STEPS)]
+                              + (["--wire-f32"] if wire == "f32" else []),
+                              cfg)
+        rate = _loss_lines(lines)[-1]["faces_per_sec"]
+        print(f"train driver, {wire} wire: {TRAIN_DIR_BATCH * 1e3 / rate:.2f} "
+              f"ms/step ({rate} faces/s, batch {TRAIN_DIR_BATCH} from a PNG "
+              f"folder, --align 68pt, "
+              f"{TRAIN_DIR_STEPS} steps, the first 3 excluded) on "
+              f"{_card_line()}")
+    _driver_split(cfg, assets, root)
+    return launches
+
+
+def _busy_ms(fn) -> float:
+    """The device time (ms) of the kernels and copies fn() launches,
+    summed over torch.profiler's device events (one stream, so the sum
+    is the busy time); 0.0 when the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def _driver_split(cfg, assets, root):
+    """Where the train driver's step goes, each part alone on the main
+    thread: the folder source (decode and align a batch), each wire's
+    host half (host_wire, which the driver runs on its feeder thread) and
+    device half (stage_images), and the training step on a batch already
+    on the card, with the device's busy share of that step
+    (torch.profiler)."""
+    from facerecon_tpu_torch.data.folder import FolderDataset
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    from facerecon_tpu_torch.train import (host_wire, init_state,
+                                           make_train_step, stage_images)
+    ds = FolderDataset(root, cfg, align="68pt", assets=assets)
+    it = ds.batches(TRAIN_DIR_BATCH, seed=1)
+    next(it)
+    t0 = time.perf_counter()
+    host = [next(it) for _ in range(4)]
+    feed_ms = (time.perf_counter() - t0) * 1e3 / 4
+    quant_ms, wire_ms = {}, {}
+    for wire in ("u8", "f32"):
+        t0 = time.perf_counter()
+        sent = [host_wire(images, wire == "u8") for images, _, _ in host]
+        quant_ms[wire] = (time.perf_counter() - t0) * 1e3 / len(host)
+
+        def stage():
+            for images in sent:
+                stage_images(images, torch.device(DEVICE))
+        stage()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage()
+        torch.cuda.synchronize()
+        wire_ms[wire] = (time.perf_counter() - t0) * 1e3 / len(host)
+    pipe = make_train_pipeline(cfg, assets, device=DEVICE)
+    state = init_state(pipe, 1000, seed=0)
+    step = make_train_step(pipe)
+    images = stage_images(host_wire(host[0][0]), pipe.device)
+    lmk = torch.as_tensor(host[0][1], device=DEVICE)
+    for _ in range(3):
+        step(state, images, lmk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step(state, images, lmk)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 8
+    busy = _busy_ms(lambda: [step(state, images, lmk) for _ in range(4)]) / 4
+    print(f"train driver split (batch {TRAIN_DIR_BATCH}, each alone on the "
+          f"main thread): folder source {feed_ms:.2f} ms a batch (PIL decode "
+          f"+ 68pt align); the wire's host half (the feeder thread's) u8 "
+          f"{quant_ms['u8']:.2f} ms, f32 {quant_ms['f32']:.2f} ms; its "
+          f"device half (staging on the main thread) u8 "
+          f"{wire_ms['u8']:.2f} ms, f32 "
+          f"{wire_ms['f32']:.2f} ms; train step on a card batch "
+          f"{step_ms:.2f} ms, device busy {busy:.2f} ms of it "
+          f"({100 * busy / step_ms:.1f}%, torch.profiler) on {_card_line()}")
+    del pipe, state
+    torch.cuda.empty_cache()
+
+
+def _same(a, b) -> bool:
+    """Nested state dicts equal bit for bit (tensors compared on the
+    CPU)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1161,6 +1650,14 @@ def main() -> int:
     check_evaluate()
     check_floor(cfg, assets)
     measured["ctz_walk"], walk_launches = check_ctz_walk()
+    tmp = tempfile.mkdtemp()
+    try:
+        driver_launches = {"fit": check_fit(cfg, assets, tmp),
+                           "train driver": check_train_driver(cfg, assets,
+                                                              tmp),
+                           "infer": check_infer(cfg, assets, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     launches.update(raster_select=train_launches["raster_select"],
                     select_grad=train_launches["select_grad"],
                     raster_pos=contract_launches["raster_pos"],
@@ -1180,6 +1677,10 @@ def main() -> int:
         max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
         bound_ms=m["bound_ms"], bound_by=m["bound_by"],
         library_ms=m.get("library_ms")) for name, m in measured.items()]
+    for phase, n in driver_launches.items():
+        print(f"{phase} launches: raster_shade {n['raster_shade']}, "
+              f"raster_select {n['raster_select']}, select_grad "
+              f"{n['select_grad']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,14 +11,18 @@ Flax's SAME padding is asymmetric at stride 2 (more padding after than
 before), so every conv and the max-pool pad explicitly; torch's
 symmetric `padding=` would shift the sampling grid.
 
-`fuse_variables` folds the training model's variables (nested dicts of
-numpy arrays, flax layout) into the fused model's flax-layout params;
-`jax_params.fused_state_dict` maps those onto this module.
+`fold_bn_model` folds the port's own BatchNorm model (models/resnet.py,
+e.g. restored from a checkpoint the port trained) into this module's
+state_dict. `fuse_variables` folds the reference's variables (nested
+dicts of numpy arrays, flax layout) into the fused model's flax-layout
+params; `jax_params.fused_state_dict` maps those onto this module. Both
+folds run the same numpy float32 arithmetic.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -187,3 +191,43 @@ def fuse_variables(variables, depth: int = 50):
     out["head"] = {"kernel": params["Dense_0"]["kernel"],
                    "bias": params["Dense_0"]["bias"]}
     return {"params": out}
+
+
+def _fold_conv(conv: nn.Conv2d, bn) -> tuple:
+    """A port conv (no bias, OIHW) and the BatchNorm after it -> (scaled
+    OIHW kernel, bias), numpy float32, from the running statistics the
+    eval-mode BatchNorm normalises with (and its eps, 1e-5)."""
+    def np32(t):
+        return t.detach().cpu().to(torch.float32).numpy()
+    s, t = _bn_affine({"scale": np32(bn.weight), "bias": np32(bn.bias)},
+                      {"mean": np32(bn.running_mean),
+                       "var": np32(bn.running_var)})
+    return np32(conv.weight) * s[:, None, None, None], t
+
+
+@torch.no_grad()
+def fold_bn_model(model) -> "OrderedDict[str, torch.Tensor]":
+    """The port's BatchNorm ResNetRegressor -> a FusedResNetRegressor
+    state_dict (float32): each conv folded with the BatchNorm that
+    follows it, and the 7x7/stride-2 stem turned into the exact 4x4
+    space-to-depth kernel (_stem_to_s2d). The fused model computes the
+    BN model's eval-mode forward to float32 rounding."""
+    out = OrderedDict()
+
+    def put(name, w, b):
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        out[f"{name}.bias"] = torch.from_numpy(np.ascontiguousarray(b))
+
+    w7, b0 = _fold_conv(model.stem, model.stem_bn)
+    put("stem", _stem_to_s2d(w7.transpose(2, 3, 1, 0)).transpose(3, 2, 0, 1),
+        b0)
+    for i, blk in enumerate(model.blocks):
+        pairs = [("conv0", blk.conv0, blk.bn0), ("conv1", blk.conv1, blk.bn1),
+                 ("conv2", blk.conv2, blk.bn2)]
+        if blk.proj is not None:
+            pairs.append(("proj", blk.proj, blk.proj_bn))
+        for name, conv, bn in pairs:
+            put(f"blocks.{i}.{name}", *_fold_conv(conv, bn))
+    put("head", model.head.weight.detach().cpu().to(torch.float32).numpy(),
+        model.head.bias.detach().cpu().to(torch.float32).numpy())
+    return out

@@ -112,6 +112,7 @@ class ResNetRegressor(nn.Module):
                  width: int = 64, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.stage_sizes, self.width = tuple(stage_sizes), width
         self.stem = nn.Conv2d(3, width, 7, stride=2, bias=False)
         self.stem_bn = BatchNorm(width)
         blocks, in_ch = [], width

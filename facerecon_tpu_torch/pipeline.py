@@ -5,9 +5,12 @@ rasterizer -> composite over the input image. PyTorch runs eagerly, so
 there is no jit:
   - `make_pipeline` holds the BN-folded inference model, and
     `Pipeline.reconstruct` is the counterpart of the reference's
-    `make_reconstruct_fn(inference=True)`;
+    `make_reconstruct_fn(inference)`;
   - `make_train_pipeline` holds the BatchNorm training model, and
-    `regress_coeffs` its forward (train.py builds the step on it).
+    `regress_coeffs` its forward (train.py builds the step on it);
+  - `fuse_for_inference` folds a BatchNorm pipeline's model into the
+    fused one (models/fused.fold_bn_model), e.g. for a checkpoint the
+    port trained.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from facerecon_tpu_torch import resolve_device
 from facerecon_tpu_torch.config import FaceReconConfig
 from torch import nn
 
-from facerecon_tpu_torch.models.fused import build_fused_model
+from facerecon_tpu_torch.models.fused import (FusedResNetRegressor,
+                                              build_fused_model, fold_bn_model)
 from facerecon_tpu_torch.models.resnet import build_model
 from facerecon_tpu_torch.ops.geometry import DeviceBFM, device_bfm
 from facerecon_tpu_torch.ops.render import render_coeffs
@@ -37,9 +41,14 @@ class Pipeline:
     device: torch.device
 
     @torch.no_grad()
-    def reconstruct(self, images, background: Optional[torch.Tensor] = None):
+    def reconstruct(self, images, background: Optional[torch.Tensor] = None,
+                    inference: bool = True):
         """images (B,H,W,3) in [0,1] (tensor or array) -> (coeff vector
         (B, n_coeff), Coeffs, RenderOut) on the pipeline's device.
+
+        inference=True renders through the forward-only shaded kernel
+        (K1); inference=False through the training render's select (K2),
+        as the reference's make_reconstruct_fn(pipe) does by default.
 
         The model runs in eval mode, as the reference's reconstruct runs
         it with train=False: a BatchNorm model normalises with its running
@@ -56,7 +65,7 @@ class Pipeline:
         coeffs = split_coeff(coeff_vec, self.cfg)
         out = render_coeffs(coeffs, self.bfm, self.cfg,
                             background=images if background is None
-                            else background, inference=True)
+                            else background, inference=inference)
         return coeff_vec, coeffs, out
 
 
@@ -92,6 +101,19 @@ def make_train_pipeline(cfg: FaceReconConfig, assets: BFMAssets,
     model = build_model(cfg, depth, dtype).reset_parameters_(
         torch.Generator().manual_seed(seed))
     return _pipeline(cfg, assets, device, model.train())
+
+
+def fuse_for_inference(pipe: Pipeline) -> Pipeline:
+    """Deploy-time transform of a BatchNorm pipeline: a pipeline on the
+    same device and assets holding the fused model (BatchNorm folded
+    from the running statistics, space-to-depth stem; exact to float32
+    rounding) in the BN model's dtype. Training keeps the BN model."""
+    bn = pipe.model
+    fused = FusedResNetRegressor(bn.head.out_features, bn.stage_sizes,
+                                 bn.width, bn.dtype)
+    fused.load_state_dict(fold_bn_model(bn))
+    fused = fused.to(pipe.device, memory_format=torch.channels_last).eval()
+    return dataclasses.replace(pipe, model=fused)
 
 
 def regress_coeffs(pipe: Pipeline, images, train: bool = False):

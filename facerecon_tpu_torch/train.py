@@ -8,10 +8,16 @@ backward) -> composite -> photometric + landmark + regularization losses
 Usage:
   python -m facerecon_tpu_torch.train --steps 5 --tiny --device cpu
   python -m facerecon_tpu_torch.train --steps 200 --batch 128
+  python -m facerecon_tpu_torch.train --data-dir photos/ --batch 32 \
+      --ckpt-dir ck/ [--resume]
 
 Prints one JSON line per logged step (the loss parts and faces_per_sec)
 and a final {"steps", "first_loss", "last_loss", "improved"} report, as
-the reference does. The synthetic source renders on the training device.
+the reference does. Batches come from a folder of photos with landmark
+side-cars (--data-dir, aligned on the host) or from the synthetic source
+(rendered on the training device), through a background prefetch thread,
+which also quantizes host batches for the wire: they cross to the card
+as uint8 (--wire-f32: float32).
 """
 
 from __future__ import annotations
@@ -21,12 +27,16 @@ import dataclasses
 import json
 import math
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from facerecon_tpu_torch.checkpoint import CheckpointManager
 from facerecon_tpu_torch.config import (FaceReconConfig, default_config,
                                         tiny_config)
+from facerecon_tpu_torch.data.feeder import prefetch
+from facerecon_tpu_torch.data.folder import FolderDataset
 from facerecon_tpu_torch.data.synthetic import synthetic_batches
 from facerecon_tpu_torch.ops.losses import total_loss
 from facerecon_tpu_torch.ops.render import render_coeffs
@@ -107,7 +117,71 @@ def make_train_step(pipe: Pipeline, use_landmarks: bool = True):
     return step
 
 
+def save_state(mgr: CheckpointManager, pipe: Pipeline,
+               state: TrainState) -> None:
+    """Checkpoint the model, Adam, the schedule and the step count."""
+    mgr.save(state.step, {"model": pipe.model.state_dict(),
+                          "optimizer": state.optimizer.state_dict(),
+                          "scheduler": state.scheduler.state_dict(),
+                          "step": state.step})
+
+
+def restore_state(mgr: CheckpointManager, pipe: Pipeline,
+                  state: TrainState, step: Optional[int] = None) -> None:
+    """Load a checkpoint (the latest when step is None) into the model,
+    Adam, the schedule and the step count. The schedule's function stays
+    the one `state` was built with (as the reference rebuilds its
+    optimizer from --steps); its update count comes from the file."""
+    saved = mgr.restore(step)
+    pipe.model.load_state_dict(saved["model"])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.scheduler.load_state_dict(saved["scheduler"])
+    state.step = int(saved["step"])
+
+
+def host_wire(images, wire_u8: bool = True):
+    """The host half of the wire, run on the feeder thread: a host (numpy)
+    batch of float images in [0,1] -> uint8 (a quarter of float32's
+    bytes), or float32 when wire_u8 is False. Values are clipped to [0,1]
+    before they are quantized: the reference quantizes unclipped values,
+    which wrap modulo 256 (facerecon_tpu/train.py:188). A tensor (the
+    synthetic source renders on the device) passes as it is."""
+    if isinstance(images, torch.Tensor):
+        return images
+    if wire_u8:
+        return (np.clip(images, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    return np.ascontiguousarray(images, dtype=np.float32)
+
+
+def stage_images(images, device: torch.device):
+    """The device half of the wire: a batch from host_wire -> float32
+    [0,1] on `device`. A host batch crosses from pinned memory with a
+    non_blocking copy; a uint8 one is divided by 255 in float32 on the
+    device. A tensor is moved as it is."""
+    if isinstance(images, torch.Tensor):
+        return images.to(device)
+    host = torch.from_numpy(np.ascontiguousarray(images))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    dev = host.to(device, non_blocking=True)
+    return dev.to(torch.float32) / 255.0 if dev.dtype == torch.uint8 else dev
+
+
+def _tensorboard(logdir: Optional[str]):
+    """A SummaryWriter for `logdir`, or None (an optional sink: the run
+    carries on without it, as the reference's does)."""
+    if not logdir:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        return SummaryWriter(logdir)
+    except Exception as e:
+        print(f"tensorboard writer unavailable: {e}")
+        return None
+
+
 def run(args) -> dict:
+    """Train as the parsed flags say."""
     cfg = tiny_config() if args.tiny else default_config()
     if args.batch:
         cfg = dataclasses.replace(cfg, batch_size=args.batch)
@@ -115,27 +189,74 @@ def run(args) -> dict:
     pipe = make_train_pipeline(cfg, assets, device=args.device)
     state = init_state(pipe, args.steps, args.seed)
     train_step = make_train_step(pipe, use_landmarks=not args.no_landmarks)
-    data = synthetic_batches(pipe.bfm, cfg, cfg.batch_size,
-                             seed=args.seed + 1, pool=args.data_pool)
+    chunk = max(1, args.chunk)
 
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if args.resume and mgr.latest_step() is not None:
+            restore_state(mgr, pipe, state)
+            print(f"resumed at step {state.step}")
+    writer = _tensorboard(args.tensorboard)
+
+    if args.data_dir:
+        ds = FolderDataset(args.data_dir, cfg, align=args.align,
+                           assets=assets)
+        source = ds.batches(cfg.batch_size, seed=args.seed + 1)
+    else:
+        source = synthetic_batches(pipe.bfm, cfg, cfg.batch_size,
+                                   seed=args.seed + 1, pool=args.data_pool)
+    wire_u8 = not args.wire_f32
+    data = prefetch(((host_wire(images, wire_u8), lmk, coeff)
+                     for images, lmk, coeff in source), depth=2)
+
+    def staged():
+        images, lmk, _ = next(data)
+        return (stage_images(images, pipe.device),
+                torch.as_tensor(lmk, dtype=torch.float32).to(pipe.device))
+
+    # whole chunks only: round the step budget DOWN so --steps is never
+    # exceeded
+    n_iters = max(1, args.steps // chunk)
+    if chunk > 1 and args.steps % chunk:
+        print(f"--steps {args.steps} is not a multiple of --chunk {chunk}: "
+              f"running {n_iters * chunk} steps")
+    # the first iterations build the kernels and pick the convolutions'
+    # algorithms: the rate times those after iteration `warm`
+    warm = min(3, n_iters - 1)
     first_loss = last_loss = None
     t0 = time.perf_counter()
-    for i in range(args.steps):
-        images, lmk, _ = next(data)
-        parts = train_step(state, images, lmk)
-        if i == 0:
-            # the first step builds the kernels: the rate times the rest
-            first_loss = float(parts["total"])      # waits for the device
-            t0 = time.perf_counter()
-        if (i + 1) % args.log_every == 0 or i == args.steps - 1:
-            last_loss = float(parts["total"])
-            rate = (cfg.batch_size * i / (time.perf_counter() - t0)
-                    if i > 0 else float("nan"))
-            print(json.dumps({
-                "step": i + 1,
-                **{k: round(float(v), 5) for k, v in parts.items()},
-                "faces_per_sec": round(rate, 1)}))
-    report = {"steps": state.step, "first_loss": first_loss,
+    try:
+        for i in range(n_iters):
+            # chunk steps run between two reads of the host
+            for images, lmk in [staged() for _ in range(chunk)]:
+                parts = train_step(state, images, lmk)
+            if i == 0:
+                first_loss = float(parts["total"])   # waits for the device
+            if i == warm:
+                float(parts["total"])
+                t0 = time.perf_counter()
+            if (i + 1) % args.log_every == 0 or i == n_iters - 1:
+                last_loss = float(parts["total"])
+                rate = (cfg.batch_size * chunk * (i - warm)
+                        / (time.perf_counter() - t0) if i > warm
+                        else float("nan"))
+                print(json.dumps({
+                    "step": (i + 1) * chunk,
+                    **{k: round(float(v), 5) for k, v in parts.items()},
+                    "faces_per_sec": round(rate, 1)}))
+                if writer is not None:
+                    for k, v in parts.items():
+                        writer.add_scalar(k, float(v), (i + 1) * chunk)
+            if mgr and (i + 1) % cfg.checkpoint_every == 0:
+                save_state(mgr, pipe, state)
+    finally:
+        data.close()
+        if writer is not None:
+            writer.close()
+    if mgr:
+        save_state(mgr, pipe, state)
+    report = {"steps": args.steps, "first_loss": first_loss,
               "last_loss": last_loss,
               "improved": (first_loss is None or last_loss is None
                            or last_loss < first_loss)}
@@ -143,23 +264,43 @@ def run(args) -> dict:
     return report
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--chunk", type=int, default=1,
+                   help="optimizer steps between two reads of the host "
+                        "(--steps is rounded down to a multiple)")
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--data-pool", type=int, default=0,
                    help="synthetic source: render this many batches once "
                         "and epoch over them (0 = a fresh render each "
                         "step)")
+    p.add_argument("--data-dir", default=None,
+                   help="folder of (image, 68-landmark) pairs; omit for "
+                        "the synthetic source")
+    p.add_argument("--align", default="68pt",
+                   choices=("5pt", "68pt", "none"),
+                   help="alignment mode for --data-dir images")
+    p.add_argument("--wire-f32", action="store_true",
+                   help="send host image batches to the device as float32 "
+                        "instead of uint8 (4x the bytes)")
     p.add_argument("--bfm", default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--no-landmarks", action="store_true")
+    p.add_argument("--tensorboard", default=None,
+                   help="directory for TensorBoard scalar summaries")
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, or cpu for the "
                         "plain PyTorch path)")
-    return run(p.parse_args(argv))
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    return run(parse_args(argv))
 
 
 if __name__ == "__main__":

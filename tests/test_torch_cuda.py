@@ -412,3 +412,114 @@ def test_train_step_on_card_matches_cpu(card):
     for name, g in g_cpu.items():
         scale = float(g.abs().max())
         assert float((g_card[name] - g).abs().max()) <= 1e-3 * scale, name
+
+
+def test_fit_step_on_card_matches_cpu(card):
+    """One fit step (fit.make_fit_fn, landmarks on) on the card and on
+    the CPU from the same start and targets: the loss within 1e-4
+    relative, the coefficients' gradient within 1e-3 of its max; K2 and
+    K3 launch once each on the card (and K2 once more for the final
+    loss), never on the CPU."""
+    from facerecon_tpu_torch.data.synthetic import render_batch
+    from facerecon_tpu_torch.fit import make_fit_fn
+    from facerecon_tpu_torch.ops.losses import total_loss
+    from facerecon_tpu_torch.ops.render import render_coeffs
+    cfg = tiny_config()
+    assets = synthetic_bfm(cfg, 0)
+    rng = np.random.default_rng(2)
+    target, lmk = (t.cpu() for t in render_batch(
+        sample_coeffs(rng, cfg, 2), device_bfm(assets, "cpu"), cfg))
+    start = torch.as_tensor(sample_coeffs(rng, cfg, 2))
+    runs = []
+    for dev in (card, "cpu"):
+        bfm = device_bfm(assets, dev)
+        before = dict(_build.LAUNCHES)
+        res = make_fit_fn(cfg, 1, lr=5e-3)(start, bfm, target, lmk)
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        coeff = start.to(dev).requires_grad_(True)
+        c = split_coeff(coeff, cfg)
+        out = render_coeffs(c, bfm, cfg, background=target.to(dev))
+        loss, _ = total_loss(out, c, target.to(dev), lmk.to(dev), bfm, cfg)
+        (grad,) = torch.autograd.grad(loss, coeff)
+        runs.append((float(res.losses[0]), grad.cpu(), launched))
+    (l_card, g_card, n_card), (l_cpu, g_cpu, n_cpu) = runs
+    assert n_card == {"raster_shade": 0, "raster_select": 2,
+                      "select_grad": 1, "raster_pos": 0, "ctz_walk": 0}
+    assert not any(n_cpu.values())
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    scale = float(g_cpu.abs().max())
+    assert scale > 0
+    assert float((g_card - g_cpu).abs().max()) <= 1e-3 * scale
+
+
+def test_fold_on_card_matches_cpu_fold(card):
+    """fold_bn_model of a BatchNorm model on the card equals the fold of
+    the same model on the CPU bit for bit, and the fused model on the
+    card computes the BN model's eval forward (float32) within 1e-4 x
+    max |y|."""
+    from facerecon_tpu_torch.models.fused import (FusedResNetRegressor,
+                                                  fold_bn_model)
+    from facerecon_tpu_torch.models.resnet import BatchNorm, build_model
+    cfg = tiny_config()
+    gen = torch.Generator().manual_seed(3)
+    model = build_model(cfg, dtype=torch.float32).reset_parameters_(gen)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.weight.numel()
+                mod.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.running_var.copy_(
+                    (1 + 0.1 * torch.randn(n, generator=gen)).abs() + 0.01)
+        model.head.weight.copy_(0.01 * torch.randn(
+            model.head.weight.shape, generator=gen))
+    want = fold_bn_model(model)
+    model = model.to(card, memory_format=torch.channels_last).eval()
+    got = fold_bn_model(model)
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    fused = FusedResNetRegressor(cfg.n_coeff, model.stage_sizes,
+                                 model.width, torch.float32)
+    fused.load_state_dict(got)
+    fused = fused.to(card, memory_format=torch.channels_last).eval()
+    x = torch.rand((2, cfg.image_size, cfg.image_size, 3), generator=gen)
+    with torch.no_grad():
+        y_bn, y = model(x.to(card)), fused(x.to(card))
+    scale = float(y_bn.abs().max())
+    assert float((y - y_bn).abs().max()) <= 1e-4 * scale
+
+
+def test_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
+    """A training checkpoint written from the card (model, Adam and the
+    schedule after one step) restores into a CPU trainer bit for bit."""
+    from facerecon_tpu_torch.checkpoint import CheckpointManager
+    from facerecon_tpu_torch.train import restore_state, save_state
+    cfg = tiny_config()
+    assets = synthetic_bfm(cfg, 0)
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.random((2, cfg.image_size, cfg.image_size,
+                                         3)), dtype=torch.float32)
+    lmk = torch.as_tensor(rng.random((2, 68, 2)) * cfg.image_size,
+                          dtype=torch.float32)
+    pipe = make_train_pipeline(cfg, assets, device=card, depth=18)
+    state = init_state(pipe, total_steps=20, seed=0)
+    make_train_step(pipe)(state, images.to(card), lmk.to(card))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    save_state(mgr, pipe, state)
+    cpu = make_train_pipeline(cfg, assets, device="cpu", depth=18, seed=5)
+    cpu_state = init_state(cpu, total_steps=20, seed=5)
+    restore_state(mgr, cpu, cpu_state)
+    assert cpu_state.step == 1
+    for name, t in pipe.model.state_dict().items():
+        got = cpu.model.state_dict()[name]
+        assert got.device.type == "cpu" and torch.equal(got, t.cpu()), name
+    for (_, a), (_, b) in zip(
+            sorted(state.optimizer.state_dict()["state"].items()),
+            sorted(cpu_state.optimizer.state_dict()["state"].items())):
+        for k in a:
+            assert torch.equal(a[k].cpu(), b[k].cpu()), k
+    assert (cpu_state.scheduler.state_dict()
+            == state.scheduler.state_dict())
+    assert (cpu_state.optimizer.param_groups[0]["lr"]
+            == state.optimizer.param_groups[0]["lr"])

@@ -40,6 +40,15 @@ def test_contract_slice_modules_are_checked(module):
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "checkpoint.py", "fit.py", "infer.py", "data/feeder.py",
+    "data/folder.py", "data/preprocess.py", "utils/obj_io.py"])
+def test_driver_slice_modules_are_checked(module):
+    """The drivers' slice (checkpoints, host data, fit, infer) is among
+    the sources checked here."""
+    assert ROOT / "facerecon_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
