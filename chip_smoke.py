@@ -75,9 +75,23 @@ Phases (any failed check raises, and the script exits non-zero):
      first call on the driver's path, and each kernel is held against
      its plain version on those arguments after the counts are read
      (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref|). The phases
-     write under one tempfile.mkdtemp(), removed at the end, and each
-     prints its launch counts above the kernels line.
- 12. prints the per-kernel JSON line, the card line, and as the last line
+     (and 12-14) write under one tempfile.mkdtemp(), removed at the end,
+     and each prints its launch counts above the kernels line.
+ 12. the track driver (track.run) at full width: joint on the synthetic
+     sequence (16 frames, 100 refine steps: K1 twice, K2 101, K3 100
+     launches; the loss falls), --sequential (8 frames x 25 steps at
+     batch 1, with the device's busy share) and --video (a 16-frame MJPG
+     clip written with cv2, decoded within 0.03 of its source, --align
+     none; the loss halves), each holding its own first K1/K2/K3 calls
+     as in phases 9-11.
+ 13. config 5's render at 512 px (bench.py's render512: tile_h 2 x 8
+     columns, batch 256 in microbatches of 32, one K1 launch each), the
+     first microbatch's K1 call held whole (all 32 images), then faces/s
+     and K1's ms a launch.
+ 14. data parallelism at world size 1 (one card): dryrun_multichip(1)
+     over NCCL, then two train steps (batch 32) in a world-size-1 NCCL
+     group, bit for bit equal to the same steps with no group.
+ 15. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Uses random weights from a seed and random images, as bench.py does.
 """
@@ -144,6 +158,15 @@ FUSED_BF16 = 5e-2    # fused vs BN-eval coefficients, both bf16 (x max|c|)
 TRAIN_DIR_FACES = 64     # train driver: PNG faces in the folder
 TRAIN_DIR_BATCH = 32     # train driver: batch
 TRAIN_DIR_STEPS = 12     # train driver: steps timed on each wire
+TRACK_FRAMES = 16        # track, joint and --video: frames
+TRACK_STEPS = 100        # track, joint and --video: refine steps
+SEQ_FRAMES = 8           # track --sequential: frames
+SEQ_STEPS = 25           # track --sequential: refine steps a frame
+VIDEO_MAE = 0.03         # MJPG decode vs source, mean |err|
+                         # (tests/test_real_input_drivers.py:115)
+R512_BATCH = 256         # config 5: 512-px render, bench.py's render512
+R512_MICRO = 32
+DP_BATCH = 32            # world-size-1 NCCL train step
 DEVICE = "cuda"
 
 
@@ -1278,7 +1301,7 @@ def check_fit(cfg, assets, tmp):
     if launches != want:
         raise AssertionError(f"the fit launched {launches}, not {want}")
     short = fit.make_fit_fn(cfg, 5, lr=5e-3)
-    busy = _busy_ms(lambda: short(zero, bfm, target, lmk)) / 6
+    busy = _busy_ms(lambda: short(zero, bfm, target, lmk))[0] / 6
     print(f"fit: device busy {busy:.3f} ms a step (torch.profiler, 5 steps "
           f"and the final loss) of {ms:.3f} ms ({100 * busy / ms:.1f}%)")
     monotone = float(np.mean(np.diff(losses) <= 1e-4))
@@ -1522,16 +1545,21 @@ def check_train_driver(cfg, assets, tmp):
     return launches
 
 
-def _busy_ms(fn) -> float:
-    """The device time (ms) of the kernels and copies fn() launches,
-    summed over torch.profiler's device events (one stream, so the sum
-    is the busy time); 0.0 when the profiler records none."""
+def _busy_ms(fn):
+    """(busy, wall): the device time (ms) of the kernels and copies fn()
+    launches, summed over torch.profiler's device events (one stream, so
+    the sum is the busy time; 0.0 when the profiler records none), and
+    the host clock's ms from fn()'s start to the device's end, under the
+    same profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return busy, wall
 
 
 def _driver_split(cfg, assets, root):
@@ -1579,7 +1607,8 @@ def _driver_split(cfg, assets, root):
         step(state, images, lmk)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 8
-    busy = _busy_ms(lambda: [step(state, images, lmk) for _ in range(4)]) / 4
+    busy = _busy_ms(lambda: [step(state, images, lmk)
+                             for _ in range(4)])[0] / 4
     print(f"train driver split (batch {TRAIN_DIR_BATCH}, each alone on the "
           f"main thread): folder source {feed_ms:.2f} ms a batch (PIL decode "
           f"+ 68pt align); the wire's host half (the feeder thread's) u8 "
@@ -1605,6 +1634,261 @@ def _same(a, b) -> bool:
     return a == b
 
 
+def _track(label, argv, want):
+    """track.run on parsed argv at full width, inside a recording of its
+    first K1, K2 and K3 calls, the counters reset just before and read
+    just after; the launches must be `want`, and each recorded call is
+    held against its plain version. Returns (report, launches)."""
+    from facerecon_tpu_torch import track
+    from facerecon_tpu_torch.ops import _build
+    names = [w for w, k in _WRAPPERS.items() if want[k]]
+    with _recording(*names) as seen:
+        _build.reset_launches()
+        rep = track.run(track.parse_args(argv + ["--device", DEVICE]))
+        launches = dict(_build.LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"{label} launched {launches}, not {want}")
+    _hold_recorded(seen, label)
+    torch.cuda.empty_cache()
+    return rep, launches
+
+
+def _track_launches(k1, steps):
+    return {"raster_shade": k1, "raster_select": steps + 1,
+            "select_grad": steps, "raster_pos": 0, "ctz_walk": 0}
+
+
+def check_track(cfg, assets, tmp):
+    """The track driver at full width (README's command and two more):
+      - joint: the synthetic sequence, TRACK_FRAMES frames, TRACK_STEPS
+        refine steps (K1 twice: the sequence's render and the tracked
+        one; K2 a step and once for the report; K3 a step); the loss
+        falls;
+      - sequential: SEQ_FRAMES frames x SEQ_STEPS steps at batch 1, with
+        the device's busy share of a short run (torch.profiler);
+      - --video: a TRACK_FRAMES-frame MJPG clip of rendered faces written
+        with cv2 and a (T,68,2) landmark file, --align none; the decoded
+        frames within VIDEO_MAE of the source, and the loss halves.
+    Returns each run's launch counts."""
+    from facerecon_tpu_torch import track
+    from facerecon_tpu_torch.data.synthetic import render_batch, sample_coeffs
+    from facerecon_tpu_torch.data.video import load_video
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    counts = {}
+    rep, counts["track joint"] = _track(
+        "track joint",
+        ["--frames", str(TRACK_FRAMES), "--refine-steps", str(TRACK_STEPS)],
+        _track_launches(2, TRACK_STEPS))
+    print(f"track joint: {rep['refine_s'] * 1e3 / TRACK_STEPS:.3f} ms a "
+          f"refine step ({TRACK_FRAMES} frames, {cfg.image_size} px, "
+          f"{TRACK_STEPS} steps, the first included); loss "
+          f"{rep['loss_first']:.5f} -> {rep['loss_last']:.5f}, PSNR "
+          f"{rep['psnr_db']:.2f} dB, vertex MAE {rep['vertex_mae']:.5f}, "
+          f"landmark RMSE {rep['landmark_rmse_px']:.3f} px; launches "
+          f"{counts['track joint']} on {_card_line()}")
+    if not (np.isfinite(rep["loss_last"])
+            and rep["loss_last"] < rep["loss_first"]):
+        raise AssertionError(f"track joint: the loss did not fall: {rep}")
+
+    n_seq = SEQ_FRAMES * SEQ_STEPS
+    rep, counts["track sequential"] = _track(
+        "track sequential",
+        ["--sequential", "--frames", str(SEQ_FRAMES), "--refine-steps",
+         str(SEQ_STEPS)], _track_launches(2, n_seq))
+    ms = rep["refine_s"] * 1e3 / n_seq
+    bfm = device_bfm(assets, DEVICE)
+    coeff = sample_coeffs(np.random.default_rng(3), cfg, 2)
+    frames, lmk = render_batch(coeff, bfm, cfg)
+    seq_fn = track.make_sequential_fn(cfg, 5)
+    # the busy share from one run: a short sequential solve (2 frames x
+    # 5 steps) under the profiler, its device time over its own wall
+    busy, wall = (t / 10 for t in _busy_ms(
+        lambda: seq_fn(coeff * 0.5, bfm, frames, lmk)))
+    print(f"track sequential: {ms:.3f} ms a step at batch 1 ({SEQ_FRAMES} "
+          f"frames x {SEQ_STEPS} steps); a profiled run of 2 frames x 5 "
+          f"steps: {wall:.3f} ms a step, the device busy {busy:.3f} ms of "
+          f"it ({100 * busy / wall:.1f}%, torch.profiler); "
+          f"loss {rep['loss_first']:.5f} -> {rep['loss_last']:.5f}, PSNR "
+          f"{rep['psnr_db']:.2f} dB, vertex MAE {rep['vertex_mae']:.5f}; "
+          f"launches {counts['track sequential']}")
+    if not np.isfinite([rep["loss_first"], rep["loss_last"]]).all():
+        raise AssertionError(f"track sequential: {rep}")
+
+    import cv2
+    base = sample_coeffs(np.random.default_rng(9), cfg, 1)[0]
+    seq = np.tile(base, (TRACK_FRAMES, 1))
+    seq[:, cfg.coeff_split[2]] += 0.15 * np.sin(np.linspace(
+        0, 2 * np.pi, TRACK_FRAMES, dtype=np.float32))
+    frames, lmk = (t.cpu().numpy() for t in render_batch(seq, bfm, cfg))
+    path = os.path.join(tmp, "clip.avi")
+    lmk_path = os.path.join(tmp, "clip_lmk.npy")
+    size = cfg.image_size
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                         (size, size))
+    if not vw.isOpened():
+        raise AssertionError("cv2 cannot write an MJPG clip here")
+    for img in frames:
+        vw.write((np.clip(img, 0, 1) * 255).astype(np.uint8)[..., ::-1])
+    vw.release()
+    np.save(lmk_path, lmk)
+    dec, _ = load_video(path, cfg, landmarks=lmk_path, align="none")
+    mae = float(np.abs(dec - frames).mean())
+    if not (dec.shape == frames.shape and mae < VIDEO_MAE):
+        raise AssertionError(f"the decoded clip {dec.shape} differs from "
+                             f"its source by {mae} (bar {VIDEO_MAE})")
+    rep, counts["track video"] = _track(
+        "track --video",
+        ["--video", path, "--video-landmarks", lmk_path, "--align", "none",
+         "--refine-steps", str(TRACK_STEPS)], _track_launches(1, TRACK_STEPS))
+    print(f"track --video: decoded {dec.shape[0]} MJPG frames, mean |err| "
+          f"{mae:.4f} against the source (bar {VIDEO_MAE}); "
+          f"{rep['refine_s'] * 1e3 / TRACK_STEPS:.3f} ms a refine step; loss "
+          f"{rep['loss_first']:.5f} -> {rep['loss_last']:.5f}, PSNR "
+          f"{rep['psnr_db']:.2f} dB, landmark RMSE "
+          f"{rep['landmark_rmse_px']:.3f} px; launches "
+          f"{counts['track video']}")
+    if not rep["loss_last"] < 0.5 * rep["loss_first"]:
+        raise AssertionError(f"track --video: the loss did not halve: {rep}")
+    del bfm, frames, lmk
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_render512():
+    """Config 5's render at 512 px (bench.py's render512):
+    default_config(image_size 512, focal scaled, tile_h 2, 8 columns),
+    its own synthetic asset, R512_BATCH faces in microbatches of
+    R512_MICRO through the inference render (one K1 launch a microbatch),
+    the counters reset just before and read just after; the first
+    microbatch's K1 call, all R512_MICRO images of it, held against its
+    plain version (tri_id exact, color and bary 1e-6); then faces/s and
+    K1's ms a launch at that shape. Returns the launch counts."""
+    from facerecon_tpu_torch.config import default_config
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    from facerecon_tpu_torch.ops.render import render_coeffs
+    from facerecon_tpu_torch.utils.bfm import synthetic_bfm
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    size = 512
+    cfg = default_config(image_size=size, focal=1015.0 * size / 224.0,
+                         tile_h=2, raster_cols=8, batch_size=R512_BATCH)
+    assets = synthetic_bfm(cfg, 0)
+    bfm = device_bfm(assets, DEVICE)
+    coeffs = torch.as_tensor(sample_coeffs(np.random.default_rng(0), cfg,
+                                           R512_BATCH), device=DEVICE)
+
+    @torch.no_grad()
+    def render_all():
+        return torch.stack([render_coeffs(
+            split_coeff(c, cfg), bfm, cfg, inference=True).image.mean(
+                dim=(1, 2, 3)) for c in coeffs.split(R512_MICRO)])
+
+    with _recording("shade_windows") as seen:
+        _build.reset_launches()
+        means = render_all()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    want = R512_BATCH // R512_MICRO
+    if launches != {"raster_shade": want, "raster_select": 0,
+                    "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}:
+        raise AssertionError(f"render512 launched {launches}")
+    if not bool(torch.isfinite(means).all()):
+        raise AssertionError("render512: non-finite images")
+    err = _hold_recorded(seen, "render512")["raster_shade"]
+    (win, rec), kw = seen["shade_windows"]
+    cover = float((R.shade_windows(win, rec, **kw)[0] >= 0).float().mean())
+    render_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        render_all()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / REPS
+    k1_ms = _time_ms(lambda: R.shade_windows(win, rec, **kw), REPS)
+    print(f"render512: {R512_BATCH / dt:.1f} faces/s ({dt * 1e3:.2f} ms a "
+          f"batch of {R512_BATCH} in microbatches of {R512_MICRO}, "
+          f"{size} px, tile_h 2 x 8 columns, {assets.n_faces} faces); K1 "
+          f"{k1_ms:.3f} ms a launch of {R512_MICRO}; K1 held on all "
+          f"{R512_MICRO} images of microbatch 1 (coverage {cover:.3f}) "
+          f"max|err| {err:.3g}; "
+          f"launches {launches} on {_card_line()}")
+    del bfm, coeffs, seen, win, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_data_parallel(cfg, assets, tmp):
+    """Data parallelism on the card (one card, so world size 1; sizes
+    above 1 are held on the CPU by tests/test_torch_parallel*.py):
+    graft_entry.dryrun_multichip(1) over NCCL; then two train steps
+    (bf16 ResNet-50, batch DP_BATCH) inside a world-size-1 NCCL group
+    against the same steps with no group, from the same weights and
+    batch, with cuDNN held to its deterministic algorithms: every
+    parameter, buffer and loss part bit for bit equal."""
+    import torch.distributed as dist
+    from facerecon_tpu_torch.graft_entry import dryrun_multichip
+    from facerecon_tpu_torch.parallel import mesh
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    from facerecon_tpu_torch.train import init_state, make_train_step
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(1)
+    print(f"dryrun_multichip(1) over NCCL: loss {loss:.4f} "
+          f"({time.perf_counter() - t0:.1f} s, the spawned process's "
+          f"start included)")
+    gen = torch.Generator().manual_seed(21)
+    s = cfg.image_size
+    images = torch.rand((DP_BATCH, s, s, 3), generator=gen).to(DEVICE)
+    lmk = (torch.rand((DP_BATCH, 68, 2), generator=gen) * s).to(DEVICE)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for grouped in (False, True):
+            if grouped:
+                mesh.init(DEVICE, world_size=1, rank=0,
+                          init_method="file://" + os.path.join(tmp, "nccl"))
+            try:
+                pipe = make_train_pipeline(cfg, assets, device=DEVICE)
+                state = init_state(pipe, total_steps=2, seed=0)
+                head = pipe.model.head.weight
+                with torch.no_grad():    # a head that passes a gradient
+                    head.copy_(2e-3 * torch.randn(
+                        head.shape, generator=torch.Generator().manual_seed(
+                            1)))
+                step = make_train_step(pipe)
+                parts = [step(state, images, lmk) for _ in range(2)]
+                torch.cuda.synchronize()
+                runs.append(([{k: v.cpu() for k, v in p.items()}
+                              for p in parts],
+                             {k: v.cpu() for k, v in
+                              pipe.model.state_dict().items()}))
+                del pipe, state, step, head
+            finally:
+                mesh.close()
+    finally:
+        torch.backends.cudnn.deterministic = was
+    if dist.is_initialized():
+        raise AssertionError("the NCCL group outlived its phase")
+    (p0, s0), (p1, s1) = runs
+    if not (_same(p0, p1) and _same(s0, s1)):
+        raise AssertionError("the world-size-1 NCCL train step differs "
+                             "from the plain step")
+    print(f"data parallel: 2 train steps (batch {DP_BATCH}) in a world-size-1 "
+          f"NCCL group equal the plain steps bit for bit ({len(s0)} tensors, "
+          f"loss {float(p1[-1]['total']):.5f})")
+    torch.cuda.empty_cache()
+
+
+def _timed(name, fn, *args):
+    """fn(*args), its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1614,6 +1898,7 @@ def main() -> int:
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.utils.bfm import synthetic_bfm
 
+    start = time.perf_counter()
     card = _card_line()
     print(f"device: {torch.cuda.get_device_name(0)} ({card}), torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -1652,10 +1937,15 @@ def main() -> int:
     measured["ctz_walk"], walk_launches = check_ctz_walk()
     tmp = tempfile.mkdtemp()
     try:
-        driver_launches = {"fit": check_fit(cfg, assets, tmp),
-                           "train driver": check_train_driver(cfg, assets,
-                                                              tmp),
-                           "infer": check_infer(cfg, assets, tmp)}
+        driver_launches = {
+            "fit": _timed("fit", check_fit, cfg, assets, tmp),
+            "train driver": _timed("train driver", check_train_driver, cfg,
+                                   assets, tmp),
+            "infer": _timed("infer", check_infer, cfg, assets, tmp)}
+        driver_launches.update(_timed("track", check_track, cfg, assets,
+                                      tmp))
+        driver_launches["render512"] = _timed("render512", check_render512)
+        _timed("data parallel", check_data_parallel, cfg, assets, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches.update(raster_select=train_launches["raster_select"],
@@ -1681,6 +1971,7 @@ def main() -> int:
         print(f"{phase} launches: raster_shade {n['raster_shade']}, "
               f"raster_select {n['raster_select']}, select_grad "
               f"{n['select_grad']}")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

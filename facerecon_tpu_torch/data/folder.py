@@ -28,7 +28,7 @@ Images are numpy on the host; train.py stages them onto the device.
 from __future__ import annotations
 
 import os
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -150,10 +150,15 @@ class FolderDataset:
         return (np.stack([p[0] for p in pairs]),
                 np.stack([p[1] for p in pairs]))
 
-    def batches(self, batch: int, seed: int = 0, epochs: Optional[int] = None
+    def batches(self, batch: int, seed: int = 0, epochs: Optional[int] = None,
+                shard: Optional[Callable] = None
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray, None]]:
         """Endless (or epochs-bounded) shuffled (images, lmk68, None)
-        batches, same interface as data/synthetic.synthetic_batches."""
+        batches, same interface as data/synthetic.synthetic_batches.
+
+        shard: maps each global batch's item indices to the part this
+        process loads (parallel/mesh.shard_batch), before any image is
+        decoded; every rank shuffles the same order from `seed`."""
         if len(self.items) < batch:
             raise ValueError(
                 f"dataset has {len(self.items)} items < batch size {batch}: "
@@ -164,6 +169,8 @@ class FolderDataset:
             order = rng.permutation(len(self.items))
             for i in range(0, len(order) - batch + 1, batch):
                 idx = order[i:i + batch]
+                if shard is not None:
+                    idx = shard(idx)
                 pairs = [self.load(int(j)) for j in idx]
                 yield (np.stack([p[0] for p in pairs]),
                        np.stack([p[1] for p in pairs]), None)

@@ -8,7 +8,7 @@ the device of the asset tensors and stay there: there is no host wire.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,22 +52,29 @@ def render_batch(coeff: np.ndarray, bfm: DeviceBFM, cfg: FaceReconConfig
 
 def synthetic_batches(bfm: DeviceBFM, cfg: FaceReconConfig, batch: int,
                       seed: int = 0, scale: float = 0.3, pool: int = 0,
+                      shard: Optional[Callable] = None,
                       ) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
                                           np.ndarray]]:
     """Endless (images, landmarks68, true_coeffs) batches.
 
     pool > 0 renders that many batches once and cycles them (shuffled
     per epoch): an endless fresh stream renders ground truth on the
-    training device every step, serialized with the train step."""
+    training device every step, serialized with the train step.
+
+    shard: maps each global draw of `batch` coefficients to the part
+    this process renders (parallel/mesh.shard_batch). Every rank draws
+    the same global batches from `seed` and renders only its slice, so
+    the slices of all ranks make up the one-process batch."""
     rng = np.random.default_rng(seed)
+    keep = shard or (lambda c: c)
     if pool <= 0:
         while True:
-            coeff = sample_coeffs(rng, cfg, batch, scale)
+            coeff = keep(sample_coeffs(rng, cfg, batch, scale))
             img, lmk = render_batch(coeff, bfm, cfg)
             yield img, lmk, coeff
     cached = []
     for _ in range(pool):
-        coeff = sample_coeffs(rng, cfg, batch, scale)
+        coeff = keep(sample_coeffs(rng, cfg, batch, scale))
         img, lmk = render_batch(coeff, bfm, cfg)
         cached.append((img, lmk, coeff))
     while True:

@@ -1,0 +1,103 @@
+"""Multi-device dry run (twin of the repository root's
+__graft_entry__.dryrun_multichip).
+
+dryrun_multichip(n) starts n processes, one a device, joins them in one
+process group (nccl on cuda, gloo on the CPU) and runs ONE data-parallel
+training step of tiny_config(batch_size=2n) with landmarks: the global
+batch sharded over the ranks, the model replicated from rank 0, the
+gradients and BatchNorm's moments all-reduced (parallel/mesh.py). It
+checks that the loss is finite and prints the reference's line.
+
+  >>> from facerecon_tpu_torch.graft_entry import dryrun_multichip
+  >>> dryrun_multichip(2, device="cpu")
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+
+def _dryrun_rank(rank: int, n: int, device: str, init_file: str,
+                 results) -> None:
+    """One rank of the dry run; rank 0 puts the global loss on
+    `results`."""
+    from facerecon_tpu_torch.config import tiny_config
+    from facerecon_tpu_torch.parallel import mesh
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    from facerecon_tpu_torch.train import init_state, make_train_step
+    from facerecon_tpu_torch.utils.bfm import synthetic_bfm
+
+    torch.set_num_threads(2)
+    dev = mesh.init(device, world_size=n, rank=rank,
+                    init_method=f"file://{init_file}")
+    try:
+        cfg = tiny_config(batch_size=2 * n)
+        pipe = make_train_pipeline(cfg, synthetic_bfm(cfg, seed=0),
+                                   device=dev)
+        state = init_state(pipe, 10, seed=0)
+        mesh.replicate(pipe.model)
+        step = make_train_step(pipe, use_landmarks=True)
+        b = cfg.batch_size
+        rng = np.random.default_rng(0)
+        images = rng.random((b, cfg.image_size, cfg.image_size, 3)).astype(
+            np.float32)
+        lmk = (rng.random((b, cfg.n_landmarks, 2)) * cfg.image_size).astype(
+            np.float32)
+        images, lmk = (torch.from_numpy(x).to(dev)
+                       for x in mesh.shard_batch((images, lmk)))
+        total = float(step(state, images, lmk)["total"])
+        if rank == 0:
+            results.put(total)
+    finally:
+        mesh.close()
+
+
+_JOIN_S = 600.0    # a rank still running after this long has hung
+
+
+def spawn(fn, args: tuple, n: int) -> None:
+    """fn(rank, *args) in n spawned processes; waits for every one, at
+    most _JOIN_S seconds: a rank that hangs (a rendezvous that never
+    completes) is killed and the call raises. A rank that fails raises
+    here too."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(fn, args=args, nprocs=n, join=False)
+    deadline = time.monotonic() + _JOIN_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{n} ranks of {fn.__name__} still running "
+                               f"after {_JOIN_S} s")
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> float:
+    """One sharded train step over n_devices processes. On cuda it needs
+    n_devices cards (one a rank) and raises otherwise; "cpu" runs the
+    ranks on the host over gloo. Returns the global loss."""
+    import torch.multiprocessing as mp
+    if torch.device(device).type == "cuda":
+        have = torch.cuda.device_count()
+        if n_devices > have:
+            raise RuntimeError(f"dryrun_multichip({n_devices}): needs "
+                               f"{n_devices} CUDA devices, have {have}")
+    tmp = tempfile.mkdtemp()
+    try:
+        results = mp.get_context("spawn").SimpleQueue()
+        spawn(_dryrun_rank, (n_devices, device,
+                             os.path.join(tmp, "rendezvous"), results),
+              n_devices)
+        total = results.get()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not np.isfinite(total):
+        raise AssertionError(f"non-finite loss {total}")
+    print(f"dryrun_multichip({n_devices}): one sharded train step OK, "
+          f"loss={total:.4f}")
+    return total

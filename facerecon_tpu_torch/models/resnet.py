@@ -31,6 +31,7 @@ from torch import nn
 
 from facerecon_tpu_torch.config import FaceReconConfig
 from facerecon_tpu_torch.models.fused import STAGES, _same_pads
+from facerecon_tpu_torch.parallel import mesh
 
 _MOMENTUM = 0.9
 _EPS = 1e-5
@@ -62,6 +63,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, _EPS)
+        if mesh.world() > 1:
+            return self._forward_global(x)
         # one pass: normalise with the batch's biased variance (float32
         # inside, x's dtype out); with momentum 1 the buffers receive the
         # batch mean and the UNBIASED variance, rescaled to flax's biased
@@ -75,6 +78,29 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(_MOMENTUM).add_(
                 var, alpha=(1 - _MOMENTUM) * (n - 1) / n)
         return y
+
+    def _forward_global(self, x):
+        """Train mode under data parallelism: the moments of the GLOBAL
+        batch, as the reference's BatchNorm computes them inside a step
+        jitted over the mesh. Each rank's per-channel sum and sum of
+        squares (float32) are all-reduced, differentiably, so the
+        backward also sees the global statistics; normalisation and the
+        running variance use the global biased variance, and the count
+        is the global one."""
+        c = x.shape[1]
+        xf = x.float()
+        stats = mesh.all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                           (xf * xf).sum(dim=(0, 2, 3))]))
+        n = x.numel() // c * mesh.world()
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:] / n - mean * mean, min=0.0)
+        scale = self.weight * torch.rsqrt(var + _EPS)
+        shift = self.bias - mean * scale
+        y = xf * scale[:, None, None] + shift[:, None, None]
+        with torch.no_grad():
+            self.running_mean.mul_(_MOMENTUM).add_(mean, alpha=1 - _MOMENTUM)
+            self.running_var.mul_(_MOMENTUM).add_(var, alpha=1 - _MOMENTUM)
+        return y.to(x.dtype)
 
 
 class BottleneckBlock(nn.Module):

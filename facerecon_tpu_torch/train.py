@@ -11,6 +11,16 @@ Usage:
   python -m facerecon_tpu_torch.train --data-dir photos/ --batch 32 \
       --ckpt-dir ck/ [--resume]
 
+Data parallel, one process a device (parallel/mesh.py; nccl on cuda,
+gloo on the CPU):
+  python -m torch.distributed.run --standalone --nproc-per-node N \
+      -m facerecon_tpu_torch.train --batch 64 ...
+Every rank builds the same model from --seed (and takes rank 0's by a
+broadcast), draws the same global batch and loads, and trains on, only
+its slice of it;
+the gradients and the logged losses are all-reduced means, and rank 0
+alone writes checkpoints, JSON lines and TensorBoard.
+
 Prints one JSON line per logged step (the loss parts and faces_per_sec)
 and a final {"steps", "first_loss", "last_loss", "improved"} report, as
 the reference does. Batches come from a folder of photos with landmark
@@ -40,6 +50,7 @@ from facerecon_tpu_torch.data.folder import FolderDataset
 from facerecon_tpu_torch.data.synthetic import synthetic_batches
 from facerecon_tpu_torch.ops.losses import total_loss
 from facerecon_tpu_torch.ops.render import render_coeffs
+from facerecon_tpu_torch.parallel import mesh
 from facerecon_tpu_torch.pipeline import (Pipeline, make_train_pipeline,
                                           regress_coeffs)
 from facerecon_tpu_torch.utils.bfm import load_npz, synthetic_bfm
@@ -98,8 +109,14 @@ def init_state(pipe: Pipeline, total_steps: int, seed: int = 0
 def make_train_step(pipe: Pipeline, use_landmarks: bool = True):
     """(state, images, gt_lmk) -> per-term losses of the step (detached
     0-d tensors). Runs the forward in train mode (the BN running
-    statistics update in place), the backward and one Adam update."""
+    statistics update in place), the backward and one Adam update.
+
+    In a process group (parallel/mesh.py) images and gt_lmk are this
+    rank's slice of the global batch: the gradients are all-reduced
+    (mean) between the backward and the update, and the returned parts
+    are the all-reduced means."""
     cfg, bfm = pipe.cfg, pipe.bfm
+    params = list(pipe.model.parameters())
 
     def step(state: TrainState, images, gt_lmk) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
@@ -109,10 +126,18 @@ def make_train_step(pipe: Pipeline, use_landmarks: bool = True):
                                   gt_lmk if use_landmarks else None, bfm,
                                   cfg)
         total.backward()
+        parts = {k: v.detach() for k, v in parts.items()}
+        if mesh.grouped():
+            # every term is a mean over images (ops/losses.py), so on
+            # equal shards the mean of the ranks' means is the global
+            # batch's mean, and so is the mean of their gradients
+            mesh.all_reduce_grads(params, "mean")
+            vals = mesh.all_reduce(torch.stack(list(parts.values())))
+            parts = dict(zip(parts, vals / mesh.world()))
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: v.detach() for k, v in parts.items()}
+        return parts
 
     return step
 
@@ -186,8 +211,11 @@ def run(args) -> dict:
     if args.batch:
         cfg = dataclasses.replace(cfg, batch_size=args.batch)
     assets = load_npz(args.bfm) if args.bfm else synthetic_bfm(cfg, seed=0)
-    pipe = make_train_pipeline(cfg, assets, device=args.device)
+    device = mesh.init(args.device)
+    lead = mesh.rank() == 0           # rank 0 alone prints and writes
+    pipe = make_train_pipeline(cfg, assets, device=device)
     state = init_state(pipe, args.steps, args.seed)
+    mesh.replicate(pipe.model)
     train_step = make_train_step(pipe, use_landmarks=not args.no_landmarks)
     chunk = max(1, args.chunk)
 
@@ -195,17 +223,22 @@ def run(args) -> dict:
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir)
         if args.resume and mgr.latest_step() is not None:
-            restore_state(mgr, pipe, state)
-            print(f"resumed at step {state.step}")
-    writer = _tensorboard(args.tensorboard)
+            restore_state(mgr, pipe, state)      # the same file on every rank
+            if lead:
+                print(f"resumed at step {state.step}")
+    writer = _tensorboard(args.tensorboard) if lead else None
 
+    # every rank draws the same global batches and loads (decodes or
+    # renders) only its slice of each
     if args.data_dir:
         ds = FolderDataset(args.data_dir, cfg, align=args.align,
                            assets=assets)
-        source = ds.batches(cfg.batch_size, seed=args.seed + 1)
+        source = ds.batches(cfg.batch_size, seed=args.seed + 1,
+                            shard=mesh.shard_batch)
     else:
         source = synthetic_batches(pipe.bfm, cfg, cfg.batch_size,
-                                   seed=args.seed + 1, pool=args.data_pool)
+                                   seed=args.seed + 1, pool=args.data_pool,
+                                   shard=mesh.shard_batch)
     wire_u8 = not args.wire_f32
     data = prefetch(((host_wire(images, wire_u8), lmk, coeff)
                      for images, lmk, coeff in source), depth=2)
@@ -218,7 +251,7 @@ def run(args) -> dict:
     # whole chunks only: round the step budget DOWN so --steps is never
     # exceeded
     n_iters = max(1, args.steps // chunk)
-    if chunk > 1 and args.steps % chunk:
+    if chunk > 1 and args.steps % chunk and lead:
         print(f"--steps {args.steps} is not a multiple of --chunk {chunk}: "
               f"running {n_iters * chunk} steps")
     # the first iterations build the kernels and pick the convolutions'
@@ -241,26 +274,28 @@ def run(args) -> dict:
                 rate = (cfg.batch_size * chunk * (i - warm)
                         / (time.perf_counter() - t0) if i > warm
                         else float("nan"))
-                print(json.dumps({
-                    "step": (i + 1) * chunk,
-                    **{k: round(float(v), 5) for k, v in parts.items()},
-                    "faces_per_sec": round(rate, 1)}))
+                if lead:
+                    print(json.dumps({
+                        "step": (i + 1) * chunk,
+                        **{k: round(float(v), 5) for k, v in parts.items()},
+                        "faces_per_sec": round(rate, 1)}))
                 if writer is not None:
                     for k, v in parts.items():
                         writer.add_scalar(k, float(v), (i + 1) * chunk)
-            if mgr and (i + 1) % cfg.checkpoint_every == 0:
+            if mgr and lead and (i + 1) % cfg.checkpoint_every == 0:
                 save_state(mgr, pipe, state)
     finally:
         data.close()
         if writer is not None:
             writer.close()
-    if mgr:
+    if mgr and lead:
         save_state(mgr, pipe, state)
     report = {"steps": args.steps, "first_loss": first_loss,
               "last_loss": last_loss,
               "improved": (first_loss is None or last_loss is None
                            or last_loss < first_loss)}
-    print(json.dumps(report))
+    if lead:
+        print(json.dumps(report))
     return report
 
 
@@ -300,7 +335,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
-    return run(parse_args(argv))
+    try:
+        return run(parse_args(argv))
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

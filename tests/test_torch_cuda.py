@@ -16,7 +16,10 @@ selected fields exactly equal (a copy of record values); for K3 within
 another order on the card) and bitwise equal over two launches. The
 float32 pipeline and training step on the card agree with the same ones
 on the CPU to the CPU test suite's bars, and the contract path on the
-card meets the CPU suite's bars against the oracle.
+card meets the CPU suite's bars against the oracle. A train step inside
+a world-size-1 NCCL group equals the step with no group bit for bit,
+and the joint track solve's first K2 and K3 calls equal their plain
+versions.
 """
 
 import dataclasses
@@ -523,3 +526,89 @@ def test_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
             == state.scheduler.state_dict())
     assert (cpu_state.optimizer.param_groups[0]["lr"]
             == state.optimizer.param_groups[0]["lr"])
+
+
+def test_nccl_world1_train_step_equals_plain_step(card, tmp_path,
+                                                  monkeypatch):
+    """Two training steps (bf16, depth 18) inside a world-size-1 NCCL
+    group equal the same steps with no group, from the same weights and
+    batch, bit for bit (cuDNN held to its deterministic algorithms): the
+    all-reduce of the gradients and of the loss parts over one rank is
+    the identity (and the division by one exact), and BatchNorm at world
+    size 1 takes its single-device path."""
+    import torch.distributed as dist
+    from facerecon_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = tiny_config()
+    assets = synthetic_bfm(cfg, 0)
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.random((4, cfg.image_size, cfg.image_size,
+                                         3)), dtype=torch.float32).to(card)
+    lmk = torch.as_tensor(rng.random((4, 68, 2)) * cfg.image_size,
+                          dtype=torch.float32).to(card)
+    runs = []
+    for grouped in (False, True):
+        if grouped:
+            mesh.init("cuda", world_size=1, rank=0,
+                      init_method=f"file://{tmp_path / 'rendezvous'}")
+        try:
+            assert mesh.grouped() == grouped
+            pipe = make_train_pipeline(cfg, assets, device=card, depth=18)
+            state = init_state(pipe, total_steps=2, seed=0)
+            with torch.no_grad():
+                pipe.model.head.weight.normal_(
+                    0.0, 2e-3, generator=torch.Generator(card).manual_seed(1))
+            step = make_train_step(pipe)
+            parts = [step(state, images, lmk) for _ in range(2)][-1]
+            torch.cuda.synchronize()
+            runs.append(({k: v.cpu() for k, v in parts.items()},
+                         {k: v.cpu() for k, v in
+                          pipe.model.state_dict().items()}))
+        finally:
+            mesh.close()
+    assert not dist.is_initialized()
+    (p0, s0), (p1, s1) = runs
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+def test_joint_solve_first_kernel_calls_equal_plain(card, monkeypatch):
+    """The joint track solve at batch 4 frames launches K2 and K3 once
+    a step; its first K2 and K3 calls, recorded, equal their plain
+    versions (K2 exactly, K3 within 1e-5 x max |ref|)."""
+    from facerecon_tpu_torch import track
+    from facerecon_tpu_torch.data.synthetic import render_batch
+    cfg = tiny_config()
+    bfm = device_bfm(synthetic_bfm(cfg, 0), card)
+    seq = np.tile(sample_coeffs(np.random.default_rng(2), cfg, 1), (4, 1))
+    seq[:, cfg.coeff_split[2]] += np.linspace(-0.1, 0.1, 4).astype(
+        np.float32)
+    frames, lmk = render_batch(seq, bfm, cfg)
+    seen = {}
+    for name in ("select_windows", "select_grad"):
+        def call(*args, _fn=getattr(R, name), _name=name, **kw):
+            seen.setdefault(_name, (tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args), dict(kw)))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(R, name, call)
+    tp0 = track._decompose(torch.as_tensor(seq * 0.5, device=card), cfg)
+    before = dict(_build.LAUNCHES)
+    _, losses = track.make_refine_fn(cfg, 3, 5e-3)(tp0, bfm, frames, lmk)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {"raster_shade": 0, "raster_select": 3,
+                        "select_grad": 3, "raster_pos": 0, "ctz_walk": 0}
+    assert bool(torch.isfinite(losses).all())
+    monkeypatch.undo()
+    args, kw = seen["select_windows"]
+    assert args[1].shape[0] == 4
+    for a, b in zip(R.select_windows(*args, **kw),
+                    R.select_windows_reference(*args, **kw)):
+        assert torch.equal(a, b)
+    args, kw = seen["select_grad"]
+    got = R.select_grad(*args, **kw)
+    ref = R.select_grad_reference(*args, **kw)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= 1e-5 * scale

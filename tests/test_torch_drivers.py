@@ -43,6 +43,7 @@ from facerecon_tpu.pipeline import make_pipeline as ref_make_pipeline
 from facerecon_tpu_torch import fit as TF
 from facerecon_tpu_torch import infer as TI
 from facerecon_tpu_torch import jax_params
+from facerecon_tpu_torch import track as TK
 from facerecon_tpu_torch import train as TT
 from facerecon_tpu_torch.checkpoint import CheckpointManager
 from facerecon_tpu_torch.data.synthetic import render_batch, sample_coeffs
@@ -325,12 +326,15 @@ def test_infer_matches_reference(tmp_path, monkeypatch, cfg, assets,
         assert (np.abs(d - d_ref) <= 1).mean() >= 0.999
 
 
-@pytest.mark.parametrize("driver", ["train", "fit", "infer"])
+@pytest.mark.parametrize("driver", ["train", "fit", "infer", "track"])
 def test_drivers_need_a_card_unless_asked_for_cpu(tmp_path, driver):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    main = {"train": TT.main, "fit": TF.main, "infer": TI.main}[driver]
-    argv = ["--tiny", "--steps", "1"] if driver != "infer" else [
-        "--tiny", "--synthetic", "1", "--out", str(tmp_path / "o")]
+    main = {"train": TT.main, "fit": TF.main, "infer": TI.main,
+            "track": TK.main}[driver]
+    argv = {"infer": ["--tiny", "--synthetic", "1", "--out",
+                      str(tmp_path / "o")],
+            "track": ["--tiny", "--frames", "2", "--refine-steps", "1"]
+            }.get(driver, ["--tiny", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(argv)

@@ -49,6 +49,15 @@ def test_driver_slice_modules_are_checked(module):
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "parallel/mesh.py", "graft_entry.py", "data/video.py", "track.py",
+    "convert_weights.py", "convert_assets.py"])
+def test_tracking_and_converter_slice_modules_are_checked(module):
+    """The eighth slice (tracking, data parallelism, the converters) is
+    among the sources checked here."""
+    assert ROOT / "facerecon_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
