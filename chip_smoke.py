@@ -25,16 +25,24 @@ Phases (any failed check raises, and the script exits non-zero):
      shares) and the bytes they must read (the walked setup chunks, the
      winners' record sectors).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
-     A checked small batch (finite outputs, coverage, one K1 launch per
-     call, agreement with the same float32 pipeline run on the CPU), a
-     stage split, then batch 256 in microbatches of 128, timed, with the
-     launch counters reset just before and read just after.
+     A checked small batch of a random-weight model (finite outputs,
+     coverage, one K1 launch per call, agreement with the same float32
+     pipeline run on the CPU), its stage split and one timed run of it
+     (the inference figure's earlier workload); then the benchmark's
+     headline (facerecon_tpu_torch.bench.headline: the BN model's
+     initial state, zero head, folded, images from default_rng(0), batch
+     256 in microbatches of 128, 1 + 10 x 8 passes) with the launch
+     counters reset just before and read just after: one K1 launch a
+     call and nothing else, every coefficient 0; its first K1 call held
+     against the plain version, timed and bounded; its JSON line; its
+     stage split.
   5. training main path: the BatchNorm ResNet-50 in bf16, 224 px, batch
-     128, random images and landmarks (as bench.py's train mode): a stage
-     split, then 1 warm-up and 5 timed steps with the counters reset just
-     before and read just after (one K2 and one K3 launch a step, finite
-     loss and gradients), then 10 steps on one rendered batch of 8, whose
-     loss must fall.
+     128, random images and landmarks: a stage split and 10 steps on one
+     rendered batch of 8, whose loss must fall; then the benchmark's
+     train mode (bench.train: 1 warm-up and 5 timed steps) with the
+     counters reset just before and read just after (one K2 and one K3
+     launch a step, a finite last loss), its first K2 and K3 calls held
+     against their plain versions, and its JSON line.
   6. the §9.5 contract path (rasterize_batch, K4 + decode) at 224 px,
      seeds 7 and 8, batch 4, on the asset row order and the identity
      order: K4 first held against its plain version on each order's
@@ -75,7 +83,7 @@ Phases (any failed check raises, and the script exits non-zero):
      first call on the driver's path, and each kernel is held against
      its plain version on those arguments after the counts are read
      (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref|). The phases
-     (and 12-14) write under one tempfile.mkdtemp(), removed at the end,
+     (and 12-15) write under one tempfile.mkdtemp(), removed at the end,
      and each prints its launch counts above the kernels line.
  12. the track driver (track.run) at full width: joint on the synthetic
      sequence (16 frames, 100 refine steps: K1 twice, K2 101, K3 100
@@ -84,16 +92,19 @@ Phases (any failed check raises, and the script exits non-zero):
      clip written with cv2, decoded within 0.03 of its source, --align
      none; the loss halves), each holding its own first K1/K2/K3 calls
      as in phases 9-11.
- 13. config 5's render at 512 px (bench.py's render512: tile_h 2 x 8
-     columns, batch 256 in microbatches of 32, one K1 launch each), the
-     first microbatch's K1 call held whole (all 32 images), then faces/s
-     and K1's ms a launch.
- 14. data parallelism at world size 1 (one card): dryrun_multichip(1)
+ 13. config 5's render at 512 px (bench.render512: tile_h 2 x 8
+     columns, batch 256 in microbatches of 32, one K1 launch each, 1 + 5
+     passes), the first microbatch's K1 call held whole (all 32 images),
+     its JSON line, then K1's ms a launch.
+ 14. graft_entry.entry() (the twin of __graft_entry__.entry): one K2
+     launch, the reference test's shapes, finite outputs, K2 held.
+ 15. data parallelism at world size 1 (one card): dryrun_multichip(1)
      over NCCL, then two train steps (batch 32) in a world-size-1 NCCL
      group, bit for bit equal to the same steps with no group.
- 15. prints the per-kernel JSON line, the card line, and as the last line
+ 16. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
-Uses random weights from a seed and random images, as bench.py does.
+Weights come from a seed (the benchmark's modes: the reference's
+initialisation) and images from a seed.
 """
 
 from __future__ import annotations
@@ -118,8 +129,11 @@ import torch
 
 MICRO = 128          # inference main-path microbatch
 BATCH = 256          # images per timed inference step
-REPS = 5             # timed steps (inference and training)
+REPS = 5             # timed steps (training, render512, kernels)
 TRAIN_BATCH = 128    # training main-path batch (bench.py's train mode)
+TRAIN_CHUNK = 1      # steps a timed iteration (bench.py's BENCH_CHUNK)
+HEAD_REPS = 10       # headline: timed reps of HEAD_INNER_REPS passes each
+HEAD_INNER_REPS = 8  # (bench.py's BENCH_REPS and BENCH_INNER_REPS)
 FIT_STEPS = 10       # loss-decrease check: steps on one batch of CHECK_BATCH
 CHECK_BATCH = 8      # shuffled-order kernel check and checked e2e batch
 H100_BYTES_S = 3.35e12   # HBM rate, H100 SXM data sheet
@@ -909,10 +923,15 @@ def check_ctz_walk():
                 max_abs_err=0.0), launches
 
 
-def check_end_to_end(cfg, assets, rng):
-    """The inference main path: a checked small batch, a CPU float32
-    comparison, then the timed run. Returns its launch counts."""
+def check_end_to_end(cfg, assets):
+    """The inference main path: a checked small batch of the random-weight
+    pipeline, a CPU float32 comparison, its stage split and its timed
+    pass (the inference figure's earlier workload); then bench.headline,
+    the reference's workload, counted, its first K1 call held and timed,
+    and its stage split. Returns the headline's launch counts."""
+    from facerecon_tpu_torch import bench
     from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
     from facerecon_tpu_torch.pipeline import make_pipeline
     s = cfg.image_size
     pipe = make_pipeline(cfg, assets, device=DEVICE)
@@ -961,31 +980,36 @@ def check_end_to_end(cfg, assets, rng):
 
     # stage split of one microbatch (CUDA events, after warm-up)
     batch = torch.rand((BATCH, s, s, 3),
-                       generator=torch.Generator().manual_seed(2))
-    micro = [batch[i:i + MICRO].to(DEVICE) for i in range(0, BATCH, MICRO)]
-    _stage_split(pipe, micro[0])
+                       generator=torch.Generator().manual_seed(2)).to(DEVICE)
+    _stage_split(pipe, batch[:MICRO], "random head")
 
-    # the main path: counts from 0, then batch 256 in microbatches
-    _build.reset_launches()
-    n_calls = 0
+    # the workload the inference figure timed before the benchmark's
+    # headline, once: these random weights (each image regresses a pose
+    # and shape of its own) on random images, timed by the benchmark's
+    # own timer and pass
+    dt, _ = bench.timed(lambda: bench.headline_pass(pipe, batch, MICRO),
+                        REPS, torch.device(DEVICE))
+    print(f"random-head workload: {BATCH / dt:.1f} faces/s "
+          f"(batch {BATCH} in microbatches of {MICRO}, {dt * 1e3:.1f} ms a "
+          f"pass, {REPS} passes) on {_card_line()}")
+    del pipe, batch
+    torch.cuda.empty_cache()
 
-    def step():
-        nonlocal n_calls
-        for im in micro:
-            pipe.reconstruct(im)
-            n_calls += 1
-
-    step()                                     # warm-up (counted)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        step()
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / REPS
-    launches = dict(_build.LAUNCHES)
-    print(f"end to end: {BATCH / dt:.1f} faces/s (batch {BATCH} in "
-          f"microbatches of {MICRO}, bf16 ResNet-50, {s} px, "
-          f"{dt * 1e3:.1f} ms/step, {REPS} steps) on {_card_line()}")
+    # the main path: bench.headline, the reference's workload (the BN
+    # model's initial state, zero head, folded; images from
+    # default_rng(0)), counts from 0 just before and read just after
+    with _recording("shade_windows") as seen:
+        _build.reset_launches()
+        payload, (cv, means) = bench.headline(BATCH, MICRO, HEAD_REPS,
+                                              HEAD_INNER_REPS, DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    print(json.dumps(payload))
+    n_calls = (1 + HEAD_REPS * HEAD_INNER_REPS) * (BATCH // MICRO)
+    print(f"headline: {payload['value']:.1f} faces/s (batch {BATCH} in "
+          f"microbatches of {MICRO}, bf16 fused ResNet-50 from the "
+          f"reference's initial BN state, {s} px, {HEAD_REPS} x "
+          f"{HEAD_INNER_REPS} timed passes after 1) on {_card_line()}")
     print(f"inference main path: {n_calls} reconstruct calls, launches "
           f"{launches}")
     if launches != dict(launches, raster_shade=n_calls, raster_select=0,
@@ -993,12 +1017,30 @@ def check_end_to_end(cfg, assets, rng):
         raise AssertionError("the inference main path did not launch "
                              "raster_shade once per call (and nothing "
                              "else)")
-    del pipe
+    if cv.any() or not bool(torch.isfinite(means).all()):
+        raise AssertionError("headline: coefficients not all 0 (the "
+                             "reference's zero head) or non-finite images")
+    _hold_recorded(seen, f"headline (microbatch {MICRO})")
+    (win, rec), kw = seen["shade_windows"]
+    k1_ms = _time_ms(lambda: R.shade_windows(win, rec, **kw), REPS)
+    tests, n_ops = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+    bound_ms, bound_by = _bound(_raster_bytes(
+        win, R.shade_windows(win, rec, **kw),
+        _raster_kernels()["raster_shade"][3], cfg.raster_cols,
+        assets.n_faces), n_ops, "raster_shade (headline)")
+    print(f"headline K1: {k1_ms:.3f} ms a launch of {MICRO} (every image "
+          f"the mean face), {tests:,} tests made, bound {bound_ms:.4f} ms "
+          f"by {bound_by}")
+    del seen, cv, means, win, rec
+    # the stage split of the headline's own model and images
+    _stage_split(bench.headline_pipeline(cfg, assets, DEVICE),
+                 torch.from_numpy(bench.headline_images(MICRO, s)).to(DEVICE),
+                 "headline")
     torch.cuda.empty_cache()
     return launches
 
 
-def _stage_split(pipe, images):
+def _stage_split(pipe, images, what: str):
     """ms of each stage of one reconstruct call, timed with CUDA events."""
     from facerecon_tpu_torch.ops import rasterize as R
     from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry
@@ -1035,15 +1077,18 @@ def _stage_split(pipe, images):
     parts = [f"{n} {a.elapsed_time(b):.3f}"
              for (_, a), (n, b) in zip(marks[:-1], marks[1:])]
     total = marks[0][1].elapsed_time(marks[-1][1])
-    print(f"stage ms (microbatch {images.shape[0]}): " + ", ".join(parts)
+    print(f"stage ms ({what}, microbatch {images.shape[0]}): "
+          + ", ".join(parts)
           + f"; total {total:.3f}")
 
 
 def check_training(cfg, assets):
-    """The training main path: a stage split, then 1 warm-up and REPS
-    timed steps at batch TRAIN_BATCH with the launch counters reset just
-    before and read just after; then the loss-decrease check. Returns
+    """The training main path: a stage split and the loss-decrease check;
+    then bench.train (1 warm-up and REPS timed iterations of TRAIN_CHUNK
+    steps at batch TRAIN_BATCH) with the launch counters reset just
+    before and read just after, its first K2 and K3 calls held. Returns
     the main path's launch counts."""
+    from facerecon_tpu_torch import bench
     from facerecon_tpu_torch.data.synthetic import render_batch, sample_coeffs
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.pipeline import make_train_pipeline
@@ -1052,47 +1097,9 @@ def check_training(cfg, assets):
     pipe = make_train_pipeline(cfg, assets, device=DEVICE)
     state = init_state(pipe, total_steps=1000, seed=0)
     step = make_train_step(pipe)
-    rng = np.random.default_rng(0)
-    images = torch.as_tensor(rng.random((TRAIN_BATCH, s, s, 3)),
-                             dtype=torch.float32, device=DEVICE)
-    lmk = torch.as_tensor(rng.random((TRAIN_BATCH, 68, 2)) * s,
-                          dtype=torch.float32, device=DEVICE)
+    images, lmk = (torch.from_numpy(x[0]).to(DEVICE)
+                   for x in bench.train_inputs(1, TRAIN_BATCH, s))
     _train_stage_split(pipe, state, images, lmk)
-
-    params = list(pipe.model.parameters())
-    finite = []
-
-    def checked_step():
-        before = dict(_build.LAUNCHES)
-        parts = step(state, images, lmk)
-        # one flag a step, kept on the device and read after the timed
-        # window, so the check adds no host sync to a step
-        finite.append(torch.stack(
-            [torch.isfinite(p.grad).all() for p in params]
-            + [torch.isfinite(parts["total"])]).all())
-        new = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-        if new != {"raster_shade": 0, "raster_select": 1, "select_grad": 1,
-                   "raster_pos": 0, "ctz_walk": 0}:
-            raise AssertionError(f"a training step launched {new}")
-        return parts
-
-    # the main path: counts from 0, one warm-up step, REPS timed steps
-    _build.reset_launches()
-    parts = checked_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        parts = checked_step()
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / REPS
-    launches = dict(_build.LAUNCHES)
-    if not bool(torch.stack(finite).all()):
-        raise AssertionError("non-finite training loss or gradient")
-    print(f"train: {TRAIN_BATCH / dt:.1f} faces/s (batch {TRAIN_BATCH}, bf16 "
-          f"BN ResNet-50, {s} px, fwd+bwd+Adam, {dt * 1e3:.1f} ms/step, "
-          f"{REPS} steps) on {_card_line()}")
-    print(f"training main path: {REPS + 1} steps, launches {launches}, last "
-          f"loss {float(parts['total']):.5f}")
 
     # the loss falls on one rendered batch (bench.py's 1000-step schedule)
     state = init_state(pipe, total_steps=1000, seed=0)
@@ -1104,7 +1111,31 @@ def check_training(cfg, assets):
           % (CHECK_BATCH, FIT_STEPS, " ".join(f"{x:.5f}" for x in losses)))
     if not losses[-1] < losses[0]:
         raise AssertionError("the training loss did not fall")
-    del pipe, state
+    del pipe, state, images, lmk
+    torch.cuda.empty_cache()
+
+    # the main path: bench.train, counts from 0 just before and read just
+    # after. A non-finite gradient in any step but the last would reach
+    # the weights through Adam and the last step's loss, which is checked.
+    with _recording("select_windows", "select_grad") as seen:
+        _build.reset_launches()
+        payload, parts = bench.train(TRAIN_BATCH, REPS, TRAIN_CHUNK, DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    print(json.dumps(payload))
+    n_steps = (1 + REPS) * TRAIN_CHUNK
+    print(f"train: {payload['value']:.1f} faces/s (batch {TRAIN_BATCH}, bf16 "
+          f"BN ResNet-50, {s} px, fwd+bwd+Adam, {REPS} x {TRAIN_CHUNK} timed "
+          f"steps after {TRAIN_CHUNK}) on {_card_line()}")
+    print(f"training main path: {n_steps} steps, launches {launches}, last "
+          f"loss {float(parts['total']):.5f}")
+    if launches != {"raster_shade": 0, "raster_select": n_steps,
+                    "select_grad": n_steps, "raster_pos": 0, "ctz_walk": 0}:
+        raise AssertionError(f"the training main path launched {launches}")
+    if not bool(torch.isfinite(torch.stack(list(parts.values()))).all()):
+        raise AssertionError(f"non-finite training loss {parts}")
+    _hold_recorded(seen, f"train (batch {TRAIN_BATCH})")
+    del seen, parts
     torch.cuda.empty_cache()
     return launches
 
@@ -1755,42 +1786,25 @@ def check_track(cfg, assets, tmp):
 
 
 def check_render512():
-    """Config 5's render at 512 px (bench.py's render512):
-    default_config(image_size 512, focal scaled, tile_h 2, 8 columns),
-    its own synthetic asset, R512_BATCH faces in microbatches of
-    R512_MICRO through the inference render (one K1 launch a microbatch),
-    the counters reset just before and read just after; the first
-    microbatch's K1 call, all R512_MICRO images of it, held against its
-    plain version (tri_id exact, color and bary 1e-6); then faces/s and
+    """Config 5's render at 512 px: bench.render512 (default_config at
+    image_size 512, focal scaled, tile_h 2, 8 columns, its own synthetic
+    asset, R512_BATCH faces in microbatches of R512_MICRO through the
+    inference render: one K1 launch a microbatch; 1 warm-up and REPS
+    timed passes), the counters reset just before and read just after;
+    the first microbatch's K1 call, all R512_MICRO images of it, held
+    against its plain version (tri_id exact, color and bary 1e-6); then
     K1's ms a launch at that shape. Returns the launch counts."""
-    from facerecon_tpu_torch.config import default_config
-    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch import bench
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import rasterize as R
-    from facerecon_tpu_torch.ops.geometry import device_bfm
-    from facerecon_tpu_torch.ops.render import render_coeffs
-    from facerecon_tpu_torch.utils.bfm import synthetic_bfm
-    from facerecon_tpu_torch.utils.coeffs import split_coeff
-    size = 512
-    cfg = default_config(image_size=size, focal=1015.0 * size / 224.0,
-                         tile_h=2, raster_cols=8, batch_size=R512_BATCH)
-    assets = synthetic_bfm(cfg, 0)
-    bfm = device_bfm(assets, DEVICE)
-    coeffs = torch.as_tensor(sample_coeffs(np.random.default_rng(0), cfg,
-                                           R512_BATCH), device=DEVICE)
-
-    @torch.no_grad()
-    def render_all():
-        return torch.stack([render_coeffs(
-            split_coeff(c, cfg), bfm, cfg, inference=True).image.mean(
-                dim=(1, 2, 3)) for c in coeffs.split(R512_MICRO)])
-
     with _recording("shade_windows") as seen:
         _build.reset_launches()
-        means = render_all()
+        payload, means = bench.render512(R512_BATCH, R512_MICRO, REPS,
+                                         device=DEVICE)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
-    want = R512_BATCH // R512_MICRO
+    print(json.dumps(payload))
+    want = (1 + REPS) * (R512_BATCH // R512_MICRO)
     if launches != {"raster_shade": want, "raster_select": 0,
                     "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}:
         raise AssertionError(f"render512 launched {launches}")
@@ -1799,22 +1813,48 @@ def check_render512():
     err = _hold_recorded(seen, "render512")["raster_shade"]
     (win, rec), kw = seen["shade_windows"]
     cover = float((R.shade_windows(win, rec, **kw)[0] >= 0).float().mean())
-    render_all()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        render_all()
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / REPS
     k1_ms = _time_ms(lambda: R.shade_windows(win, rec, **kw), REPS)
-    print(f"render512: {R512_BATCH / dt:.1f} faces/s ({dt * 1e3:.2f} ms a "
-          f"batch of {R512_BATCH} in microbatches of {R512_MICRO}, "
-          f"{size} px, tile_h 2 x 8 columns, {assets.n_faces} faces); K1 "
-          f"{k1_ms:.3f} ms a launch of {R512_MICRO}; K1 held on all "
-          f"{R512_MICRO} images of microbatch 1 (coverage {cover:.3f}) "
-          f"max|err| {err:.3g}; "
-          f"launches {launches} on {_card_line()}")
-    del bfm, coeffs, seen, win, rec
+    print(f"render512: {payload['value']:.1f} faces/s (batch {R512_BATCH} "
+          f"in microbatches of {R512_MICRO}, 512 px, tile_h 2 x 8 columns, "
+          f"{REPS} timed passes after 1); K1 {k1_ms:.3f} ms a launch of "
+          f"{R512_MICRO}; K1 held on all {R512_MICRO} images of microbatch 1 "
+          f"(coverage {cover:.3f}) max|err| {err:.3g}; launches {launches} on "
+          f"{_card_line()}")
+    del seen, win, rec, means
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_entry():
+    """graft_entry.entry() on the card: fn(*args) (the BN model as the
+    reference initialises it, zeros (8, 224, 224, 3), the differentiable
+    render) with the counters reset just before and read just after: one
+    K2 launch and nothing else, the reference test's shapes
+    (tests/test_graft_entry.py), finite outputs; its K2 call held
+    against the plain version. Returns the launch counts."""
+    from facerecon_tpu_torch.graft_entry import entry
+    from facerecon_tpu_torch.ops import _build
+    fn, args = entry(DEVICE)
+    with _recording("select_windows") as seen:
+        _build.reset_launches()
+        coeffs, image, lmk = fn(*args)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    if launches != {"raster_shade": 0, "raster_select": 1, "select_grad": 0,
+                    "raster_pos": 0, "ctz_walk": 0}:
+        raise AssertionError(f"entry() launched {launches}")
+    if not (coeffs.shape == (8, 257) and image.shape == (8, 224, 224, 3)
+            and lmk.shape == (8, 68, 2)):
+        raise AssertionError(f"entry() shapes {coeffs.shape}, {image.shape}, "
+                             f"{lmk.shape}")
+    if not all(bool(torch.isfinite(t).all()) for t in (coeffs, image, lmk)):
+        raise AssertionError("entry(): non-finite outputs")
+    print(f"entry(): coefficients {tuple(coeffs.shape)}, image "
+          f"{tuple(image.shape)}, landmarks {tuple(lmk.shape)}, finite; "
+          f"|coeff| max {float(coeffs.detach().abs().max()):.3g}; launches "
+          f"{launches}")
+    _hold_recorded(seen, "entry()")
+    del fn, args, coeffs, image, lmk, seen
     torch.cuda.empty_cache()
     return launches
 
@@ -1929,7 +1969,7 @@ def main() -> int:
     measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
                                            rng)[0]
     check_wide_band(cfg, assets)
-    launches = check_end_to_end(cfg, assets, rng)
+    launches = check_end_to_end(cfg, assets)
     train_launches = check_training(cfg, assets)
     contract_launches = check_contract(cfg, assets)
     check_evaluate()
@@ -1945,6 +1985,7 @@ def main() -> int:
         driver_launches.update(_timed("track", check_track, cfg, assets,
                                       tmp))
         driver_launches["render512"] = _timed("render512", check_render512)
+        driver_launches["entry"] = _timed("entry", check_entry)
         _timed("data parallel", check_data_parallel, cfg, assets, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -1,5 +1,13 @@
-"""Multi-device dry run (twin of the repository root's
-__graft_entry__.dryrun_multichip).
+"""Driver entry points (twin of the repository root's __graft_entry__.py).
+
+entry() returns (fn, args): the flagship forward at 224 px, batch 8 of
+zero images, through the BatchNorm ResNet-50 as the reference
+initialises it (eval mode) and the differentiable render (kernel K2 on
+the card). fn(*args) -> (coefficients, image, 2-D landmarks).
+
+  >>> from facerecon_tpu_torch.graft_entry import entry
+  >>> fn, args = entry(device="cpu")
+  >>> coeffs, image, lmk = fn(*args)
 
 dryrun_multichip(n) starts n processes, one a device, joins them in one
 process group (nccl on cuda, gloo on the CPU) and runs ONE data-parallel
@@ -21,6 +29,35 @@ import time
 
 import numpy as np
 import torch
+
+
+def entry(device="cuda"):
+    """(fn, (model, bfm, images)) as the reference's entry() builds them:
+    default_config(), synthetic_bfm(cfg, 0), the bf16 BatchNorm model
+    initialised from seed 0 (zero head) in eval mode, and
+    zeros (8, 224, 224, 3). fn renders with inference=False, as the
+    reference's make_reconstruct_fn(pipe) does by default, and keeps the
+    autograd graph (the forward is differentiable)."""
+    from facerecon_tpu_torch.config import default_config
+    from facerecon_tpu_torch.ops.render import render_coeffs
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    from facerecon_tpu_torch.utils.bfm import synthetic_bfm
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+
+    cfg = default_config()
+    pipe = make_train_pipeline(cfg, synthetic_bfm(cfg, seed=0),
+                               device=device, seed=0)
+    pipe.model.eval()
+    s = cfg.image_size
+    images = torch.zeros((8, s, s, 3), device=pipe.device)
+
+    def fn(model, bfm, images):
+        coeff_vec = model(images)
+        out = render_coeffs(split_coeff(coeff_vec, cfg), bfm, cfg,
+                            background=images)
+        return coeff_vec, out.image, out.geometry.landmarks2d
+
+    return fn, (pipe.model, pipe.bfm, images)
 
 
 def _dryrun_rank(rank: int, n: int, device: str, init_file: str,

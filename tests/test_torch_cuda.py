@@ -19,7 +19,11 @@ on the CPU to the CPU test suite's bars, and the contract path on the
 card meets the CPU suite's bars against the oracle. A train step inside
 a world-size-1 NCCL group equals the step with no group bit for bit,
 and the joint track solve's first K2 and K3 calls equal their plain
-versions.
+versions. The benchmark's three modes (bench.py) at small sizes launch
+exactly their kernels (headline and render512: K1 once a microbatch of
+each pass; train: K2 and K3 once a step), with finite outputs, and
+graft_entry.entry() launches K2 once, its call equal to the plain
+version.
 """
 
 import dataclasses
@@ -612,3 +616,61 @@ def test_joint_solve_first_kernel_calls_equal_plain(card, monkeypatch):
     scale = float(ref.abs().max())
     assert scale > 0
     assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("mode", ["headline", "train", "render512"])
+def test_bench_modes_launch_their_kernels(card, mode):
+    """Each mode at small sizes: one warm-up pass and `reps` timed ones,
+    so (1 + reps) passes of launches and nothing else; the payload has
+    the reference's keys, a positive rate and vs_baseline null."""
+    from facerecon_tpu_torch import bench
+    before = dict(_build.LAUNCHES)
+    if mode == "headline":
+        payload, (cv, out) = bench.headline(batch=8, micro=4, reps=2,
+                                            inner_reps=2, device=card)
+        want = {"raster_shade": (1 + 2 * 2) * 2}
+        assert not cv.any()                    # the reference's zero head
+    elif mode == "train":
+        payload, parts = bench.train(batch=4, reps=2, chunk=2, device=card)
+        want = {"raster_select": (1 + 2) * 2, "select_grad": (1 + 2) * 2}
+        out = torch.stack(list(parts.values()))
+    else:
+        payload, out = bench.render512(batch=8, micro=4, reps=2,
+                                       device=card)
+        want = {"raster_shade": (1 + 2) * 2}
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: want.get(k, 0) for k in launched}
+    assert bool(torch.isfinite(out).all())
+    assert list(payload) == ["metric", "value", "unit", "vs_baseline"]
+    assert payload["value"] > 0 and payload["vs_baseline"] is None
+
+
+def test_entry_launches_select_once(card, monkeypatch):
+    """fn(*args) of graft_entry.entry() on the card: the reference
+    test's shapes, finite outputs, one K2 launch and nothing else; its K2
+    call, recorded, equals the plain version."""
+    from facerecon_tpu_torch.graft_entry import entry
+    fn, args = entry(device=card)
+    seen = {}
+
+    def call(*a, _fn=R.select_windows, **kw):
+        seen["k2"] = (tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                            for x in a), dict(kw))
+        return _fn(*a, **kw)
+    monkeypatch.setattr(R, "select_windows", call)
+    before = dict(_build.LAUNCHES)
+    coeffs, image, lmk = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    monkeypatch.undo()
+    assert launched == {"raster_shade": 0, "raster_select": 1,
+                        "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}
+    assert coeffs.shape == (8, 257)
+    assert image.shape == (8, 224, 224, 3) and lmk.shape == (8, 68, 2)
+    for t in (coeffs, image, lmk):
+        assert bool(torch.isfinite(t).all())
+    a, kw = seen["k2"]
+    for x, y in zip(R.select_windows(*a, **kw),
+                    R.select_windows_reference(*a, **kw)):
+        assert torch.equal(x, y)

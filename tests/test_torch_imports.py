@@ -58,6 +58,13 @@ def test_tracking_and_converter_slice_modules_are_checked(module):
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", ["bench.py", "graft_entry.py"])
+def test_benchmark_slice_modules_are_checked(module):
+    """The ninth slice (the benchmark's entry points and entry()) is
+    among the sources checked here."""
+    assert ROOT / "facerecon_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -17,16 +17,29 @@ tests/test_sharding.py's bars:
   - the slices of mesh.shard_batch / shard_axis1.
 The sharded renders, the drivers under a group and dryrun_multichip(2)
 are in tests/test_torch_parallel_drivers.py.
+
+graft_entry.entry(), the twin of the reference's __graft_entry__.entry(),
+is held here too: the reference test's shapes
+(tests/test_graft_entry.py), finite outputs, and against the reference's
+entry() at its own shapes (224 px, batch 8 of zeros, the reference's
+variables carried over): coefficients equal, landmarks within 1e-4 px,
+tri_id agreement >= 99.9% and the image within 1e-4 where it agrees.
 The port's single-process results are held against the reference in
 tests/test_torch_train_step.py and tests/test_torch_track.py.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+import __graft_entry__ as ref_graft
+import facerecon_tpu.pipeline as ref_pipeline
+import facerecon_tpu_torch.ops.render as port_render
 import torch_dist_workers as W
-from facerecon_tpu_torch.graft_entry import dryrun_multichip
+from facerecon_tpu_torch import jax_params
+from facerecon_tpu_torch.graft_entry import dryrun_multichip, entry
+from facerecon_tpu_torch.ops import _build
 from facerecon_tpu_torch.parallel import mesh
 
 torch.set_num_threads(2)
@@ -105,3 +118,68 @@ def test_dryrun_needs_a_card_a_rank():
     n = torch.cuda.device_count() + 1
     with pytest.raises(RuntimeError, match=f"needs {n} CUDA devices"):
         dryrun_multichip(n)
+
+
+@pytest.fixture(scope="module")
+def entries():
+    """Both packages' entry() at their own shapes, the reference's
+    variables carried into the port's model: each side's (coefficients,
+    image, landmarks, tri_id) as numpy, plus the port's raw outputs and
+    its kernels' launches. tri_id comes from a spy on the render each fn
+    calls (the reference's fn runs unjitted outside; its reconstruct is
+    jitted inside)."""
+    seen = {}
+    orig_recon, orig_render = (ref_pipeline.make_reconstruct_fn,
+                               port_render.render_coeffs)
+
+    def spy_recon(pipe, **kw):
+        recon = orig_recon(pipe, **kw)
+
+        def call(*args):
+            res = recon(*args)
+            seen["ref"] = res[2]
+            return res
+        return call
+
+    def spy_render(*args, **kw):
+        seen["port"] = orig_render(*args, **kw)
+        return seen["port"]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_pipeline, "make_reconstruct_fn", spy_recon)
+        mp.setattr(port_render, "render_coeffs", spy_render)
+        ref_fn, ref_args = ref_graft.entry()
+        fn, args = entry(device="cpu")
+    ref_cv, ref_image, ref_lmk = (np.asarray(x) for x in ref_fn(*ref_args))
+    args[0].load_state_dict(jax_params.train_state_dict(
+        jax.tree_util.tree_map(np.asarray, ref_args[0])))
+    before = dict(_build.LAUNCHES)
+    port = fn(*args)
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    ref = (ref_cv, ref_image, ref_lmk, np.asarray(seen["ref"].tri_id))
+    got = tuple(x.detach().numpy() for x in port) + (
+        seen["port"].tri_id.numpy(),)
+    return ref, got, port, launched
+
+
+def test_entry_runs_at_the_reference_tests_shapes(entries):
+    _, _, (coeffs, image, lmk), launched = entries
+    assert coeffs.shape == (8, 257)
+    assert image.shape == (8, 224, 224, 3)
+    assert lmk.shape == (8, 68, 2)
+    for t in (coeffs, image, lmk):
+        assert bool(torch.isfinite(t).all())
+    # the differentiable render: the outputs carry the autograd graph
+    assert coeffs.requires_grad and image.requires_grad
+    assert not any(launched.values())       # the CPU takes the plain path
+
+
+def test_entry_matches_reference_entry(entries):
+    (rc, ri, rl, rt), (gc, gi, gl, gt), _, _ = entries
+    np.testing.assert_array_equal(gc, rc)
+    assert not rc.any()                   # the zero head: the mean face
+    np.testing.assert_allclose(gl, rl, rtol=0, atol=1e-4)
+    same = gt == rt
+    assert (rt >= 0).mean() > 0.05
+    assert same.mean() >= 0.999
+    assert np.abs(gi - ri)[same].max() <= 1e-4
