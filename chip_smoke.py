@@ -83,7 +83,7 @@ Phases (any failed check raises, and the script exits non-zero):
      first call on the driver's path, and each kernel is held against
      its plain version on those arguments after the counts are read
      (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref|). The phases
-     (and 12-15) write under one tempfile.mkdtemp(), removed at the end,
+     (and 12-16) write under one tempfile.mkdtemp(), removed at the end,
      and each prints its launch counts above the kernels line.
  12. the track driver (track.run) at full width: joint on the synthetic
      sequence (16 frames, 100 refine steps: K1 twice, K2 101, K3 100
@@ -98,10 +98,24 @@ Phases (any failed check raises, and the script exits non-zero):
      its JSON line, then K1's ms a launch.
  14. graft_entry.entry() (the twin of __graft_entry__.entry): one K2
      launch, the reference test's shapes, finite outputs, K2 held.
- 15. data parallelism at world size 1 (one card): dryrun_multichip(1)
+ 15. trace: the trace endpoint (profile_trace, the twin of
+     benchmarks/profile_trace.py) through its main() at its defaults
+     (batch 32) and through trace() at batch 128, 3 traced calls each
+     (K2 launched 1 + 3 times, 3 K2 device events in trace.json, the
+     warm-up call's K2 held), one headline microbatch of 128 (one K1
+     device event) and one train step at batch 128 (one K2 and one K3
+     device event), each after a warm-up; each trace read through
+     profile_trace.summarize: the device's busy share (the union of its
+     kernels and copies over the window from the first host op to the
+     last device event), its 10 device ops with the most time and its 5
+     longest idle gaps with the host op open as each began. The phase
+     prints its launches on a line of its own. The busy shares of
+     phases 9, 10 and 12 come from the same summary and fail on a trace
+     with no device event.
+ 16. data parallelism at world size 1 (one card): dryrun_multichip(1)
      over NCCL, then two train steps (batch 32) in a world-size-1 NCCL
      group, bit for bit equal to the same steps with no group.
- 16. prints the per-kernel JSON line, the card line, and as the last line
+ 17. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Weights come from a seed (the benchmark's modes: the reference's
 initialisation) and images from a seed.
@@ -1577,20 +1591,21 @@ def check_train_driver(cfg, assets, tmp):
 
 
 def _busy_ms(fn):
-    """(busy, wall): the device time (ms) of the kernels and copies fn()
-    launches, summed over torch.profiler's device events (one stream, so
-    the sum is the busy time; 0.0 when the profiler records none), and
-    the host clock's ms from fn()'s start to the device's end, under the
-    same profiler."""
+    """(busy, wall): the device's busy time (ms) while fn() runs, the
+    union of the kernels and copies in torch.profiler's trace
+    (profile_trace.summarize, which raises when the trace holds no device
+    event), and the host clock's ms from fn()'s start to the device's
+    end, under the same profiler."""
     from torch.profiler import ProfilerActivity, profile
+    from facerecon_tpu_torch import profile_trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-    return busy, wall
+    return profile_trace.summarize(
+        profile_trace.trace_events(prof))["busy_ms"], wall
 
 
 def _driver_split(cfg, assets, root):
@@ -1859,6 +1874,118 @@ def check_entry():
     return launches
 
 
+def _read_trace(where, events, want):
+    """One trace's events through profile_trace.summarize: prints the
+    device's busy share of the window, its 10 device ops with the most
+    time and its 5 longest idle gaps (each with the host op open as it
+    began); fails unless the port's kernels have exactly
+    `want` device events (kernel -> events, the others none)."""
+    from facerecon_tpu_torch import profile_trace
+    s = profile_trace.summarize(events)
+    want = {k: want.get(k, 0) for k in s["kernels"]}
+    if s["kernels"] != want:
+        raise AssertionError(f"trace, {where}: the port's kernels have "
+                             f"{s['kernels']} device events, not {want}")
+    print(f"trace, {where}: device busy {s['busy_ms']:.3f} ms of a "
+          f"{s['window_ms']:.3f} ms window ({100 * s['busy_share']:.1f}%; "
+          f"first host op to last device event); the port's kernels' "
+          f"device events {s['kernels']}; on {_card_line()}")
+    for name, n, ms, share in s["top"]:
+        short = name.replace("void ", "").replace("at::native::", "")
+        print(f"  device op {ms:9.3f} ms {100 * share:5.1f}% x{n:<5d} "
+              f"{short[:110]}")
+    for ms, op in s["gaps"]:
+        print(f"  idle gap {ms:9.3f} ms, host in {op}")
+
+
+def check_trace(cfg, assets, tmp):
+    """The trace endpoint (profile_trace, the twin of
+    benchmarks/profile_trace.py) and the main paths, each read through
+    profile_trace.summarize (_read_trace):
+      - the twin through its main() at its defaults (batch 32, 3 traced
+        calls), then through trace() at TRAIN_BATCH on this phase's
+        assets, each into its own --out under tmp: trace.json parses; K2
+        launched 1 + 3 times and nothing else, 3 K2 device events in the
+        trace; the warm-up call's K2 held against its plain version
+        (every traced call repeats it on the same inputs);
+      - one headline microbatch of MICRO (bench.headline_pass on
+        bench.headline_pipeline) after a warm-up: one K1 device event;
+      - one bench.train step at TRAIN_BATCH (bench.train_inputs) after a
+        warm-up: one K2 and one K3 device event.
+    The counters are reset just before each run and read just after.
+    Returns the phase's launch counts, summed."""
+    from torch.profiler import ProfilerActivity, profile
+    from facerecon_tpu_torch import bench, profile_trace
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.pipeline import make_train_pipeline
+    from facerecon_tpu_torch.train import init_state, make_train_step
+    total = collections.Counter()
+    none = dict.fromkeys(_build.KERNELS, 0)
+    defaults = profile_trace.parse_args([])
+    steps = defaults.steps
+    for batch in (defaults.batch, TRAIN_BATCH):
+        out = os.path.join(tmp, f"trace_{batch}")
+        # K2's inputs are copied in the warm-up, outside the profiler's
+        # window; the traced calls repeat it on the same inputs
+        with _recording("select_windows") as seen:
+            _build.reset_launches()
+            if batch == defaults.batch:     # the command line as it stands
+                path, _ = profile_trace.main(["--out", out, "--device",
+                                              DEVICE])
+            else:                           # on this phase's assets
+                path, _ = profile_trace.trace(out, batch, steps, DEVICE,
+                                              cfg, assets)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        if launches != {**none, "raster_select": 1 + steps}:
+            raise AssertionError(f"the twin at batch {batch} launched "
+                                 f"{launches}")
+        total.update(launches)
+        _read_trace(f"the twin, batch {batch}, {steps} calls",
+                    profile_trace.load_events(path),
+                    {"raster_select": steps})
+        _hold_recorded(seen, f"the twin's warm-up call (batch {batch})")
+        del seen
+        torch.cuda.empty_cache()
+
+    def traced(where, one, read, want):
+        """one() as a warm-up, then once under the profiler, ended by a
+        host read of read(its outputs)."""
+        _build.reset_launches()
+        float(read(one()))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            float(read(one()))
+        launches = dict(_build.LAUNCHES)
+        doubled = {k: 2 * n for k, n in want.items()}
+        if launches != {**none, **doubled}:
+            raise AssertionError(f"{where} launched {launches}, not "
+                                 f"{doubled} (a warm-up and a traced run)")
+        total.update(launches)
+        _read_trace(where, profile_trace.trace_events(prof), want)
+
+    pipe = bench.headline_pipeline(cfg, assets, DEVICE)
+    images = torch.from_numpy(bench.headline_images(
+        MICRO, cfg.image_size)).to(DEVICE)
+    traced(f"one headline microbatch of {MICRO}",
+           lambda: bench.headline_pass(pipe, images, MICRO),
+           lambda out: out[1].sum(), {"raster_shade": 1})
+    del pipe, images
+    torch.cuda.empty_cache()
+
+    pipe = make_train_pipeline(cfg, assets, device=DEVICE)
+    state = init_state(pipe, 1000, seed=0)
+    step = make_train_step(pipe)
+    images, lmk = (torch.from_numpy(x[0]).to(DEVICE) for x in
+                   bench.train_inputs(1, TRAIN_BATCH, cfg.image_size))
+    traced(f"one train step at batch {TRAIN_BATCH}",
+           lambda: step(state, images, lmk), lambda parts: parts["total"],
+           {"raster_select": 1, "select_grad": 1})
+    del pipe, state, step, images, lmk
+    torch.cuda.empty_cache()
+    return {k: total[k] for k in _build.KERNELS}
+
+
 def check_data_parallel(cfg, assets, tmp):
     """Data parallelism on the card (one card, so world size 1; sizes
     above 1 are held on the CPU by tests/test_torch_parallel*.py):
@@ -1986,6 +2113,8 @@ def main() -> int:
                                       tmp))
         driver_launches["render512"] = _timed("render512", check_render512)
         driver_launches["entry"] = _timed("entry", check_entry)
+        driver_launches["trace"] = _timed("trace", check_trace, cfg, assets,
+                                          tmp)
         _timed("data parallel", check_data_parallel, cfg, assets, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -9,6 +9,9 @@ the card). fn(*args) -> (coefficients, image, 2-D landmarks).
   >>> fn, args = entry(device="cpu")
   >>> coeffs, image, lmk = fn(*args)
 
+reconstruct_fn() builds that model and forward; the trace endpoint
+(profile_trace.py) traces the same forward.
+
 dryrun_multichip(n) starts n processes, one a device, joins them in one
 process group (nccl on cuda, gloo on the CPU) and runs ONE data-parallel
 training step of tiny_config(batch_size=2n) with landmarks: the global
@@ -31,30 +34,47 @@ import numpy as np
 import torch
 
 
-def entry(device="cuda"):
-    """(fn, (model, bfm, images)) as the reference's entry() builds them:
-    default_config(), synthetic_bfm(cfg, 0), the bf16 BatchNorm model
-    initialised from seed 0 (zero head) in eval mode, and
-    zeros (8, 224, 224, 3). fn renders with inference=False, as the
-    reference's make_reconstruct_fn(pipe) does by default, and keeps the
-    autograd graph (the forward is differentiable)."""
+def reconstruct_fn(cfg=None, assets=None, device="cuda",
+                   dtype=torch.bfloat16):
+    """(fn, pipe): the reference's make_pipeline + init_params(PRNGKey(0))
+    + make_reconstruct_fn(pipe). pipe holds the BatchNorm model (`dtype`,
+    bf16 as the reference's) initialised from seed 0 (zero head) in eval
+    mode and cfg's assets (default_config() and synthetic_bfm(cfg, 0)
+    when None). fn(model, bfm, images) -> (coefficients, RenderOut)
+    renders with inference=False, the default of the reference's
+    make_reconstruct_fn, and keeps the autograd graph."""
     from facerecon_tpu_torch.config import default_config
     from facerecon_tpu_torch.ops.render import render_coeffs
     from facerecon_tpu_torch.pipeline import make_train_pipeline
     from facerecon_tpu_torch.utils.bfm import synthetic_bfm
     from facerecon_tpu_torch.utils.coeffs import split_coeff
 
-    cfg = default_config()
-    pipe = make_train_pipeline(cfg, synthetic_bfm(cfg, seed=0),
-                               device=device, seed=0)
+    cfg = default_config() if cfg is None else cfg
+    if assets is None:
+        assets = synthetic_bfm(cfg, seed=0)
+    pipe = make_train_pipeline(cfg, assets, device=device, dtype=dtype,
+                               seed=0)
     pipe.model.eval()
-    s = cfg.image_size
-    images = torch.zeros((8, s, s, 3), device=pipe.device)
 
     def fn(model, bfm, images):
         coeff_vec = model(images)
-        out = render_coeffs(split_coeff(coeff_vec, cfg), bfm, cfg,
-                            background=images)
+        return coeff_vec, render_coeffs(split_coeff(coeff_vec, cfg), bfm,
+                                        cfg, background=images)
+
+    return fn, pipe
+
+
+def entry(device="cuda"):
+    """(fn, (model, bfm, images)) as the reference's entry() builds them:
+    reconstruct_fn's model and assets at default_config(), and zeros
+    (8, 224, 224, 3). fn(*args) -> (coefficients, image, 2-D landmarks),
+    differentiable."""
+    forward, pipe = reconstruct_fn(device=device)
+    s = pipe.cfg.image_size
+    images = torch.zeros((8, s, s, 3), device=pipe.device)
+
+    def fn(model, bfm, images):
+        coeff_vec, out = forward(model, bfm, images)
         return coeff_vec, out.image, out.geometry.landmarks2d
 
     return fn, (pipe.model, pipe.bfm, images)

@@ -141,7 +141,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="aligned face images; omit for --synthetic")
     p.add_argument("--synthetic", type=int, default=4,
                    help="number of synthetic faces when no images given")
-    p.add_argument("--out", default="facerecon_out")
+    p.add_argument("--out", default="/tmp/facerecon_out")
     p.add_argument("--ckpt", default=None,
                    help="training checkpoint directory to restore")
     p.add_argument("--fused", action="store_true",

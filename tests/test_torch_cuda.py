@@ -23,7 +23,8 @@ versions. The benchmark's three modes (bench.py) at small sizes launch
 exactly their kernels (headline and render512: K1 once a microbatch of
 each pass; train: K2 and K3 once a step), with finite outputs, and
 graft_entry.entry() launches K2 once, its call equal to the plain
-version.
+version. The trace endpoint (profile_trace) at a small batch launches
+K2 once a call, and its trace holds one K2 device event a traced call.
 """
 
 import dataclasses
@@ -674,3 +675,22 @@ def test_entry_launches_select_once(card, monkeypatch):
     for x, y in zip(R.select_windows(*a, **kw),
                     R.select_windows_reference(*a, **kw)):
         assert torch.equal(x, y)
+
+
+def test_trace_twin_holds_its_select_events(card, tmp_path):
+    """profile_trace.trace at tiny_config(), batch 2, 2 traced calls:
+    K2 launched 1 + 2 times and nothing else; the trace holds exactly 2
+    K2 device events (the profiler records the ctypes-launched kernels)
+    and no other kernel of the port."""
+    from facerecon_tpu_torch import profile_trace
+    before = dict(_build.LAUNCHES)
+    path, _ = profile_trace.trace(str(tmp_path), batch=2, steps=2,
+                                  device=card, cfg=tiny_config())
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {"raster_shade": 0, "raster_select": 3,
+                        "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}
+    s = profile_trace.summarize(profile_trace.load_events(path))
+    assert s["kernels"] == {"raster_shade": 0, "raster_select": 2,
+                            "select_grad": 0, "raster_pos": 0,
+                            "ctz_walk": 0}
+    assert 0 < s["busy_share"] <= 1

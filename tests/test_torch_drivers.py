@@ -271,6 +271,15 @@ def test_infer_writes_outputs(tmp_path):
     assert np.isfinite(rep["landmark_rmse_px"])
 
 
+def test_infer_defaults_match_reference():
+    """--out defaults to the reference's /tmp/facerecon_out
+    (facerecon_tpu/infer.py), and --device to cuda."""
+    args = TI.parse_args([])
+    assert args.out == "/tmp/facerecon_out"
+    assert args.device == "cuda"
+    assert isinstance(args, argparse.Namespace)
+
+
 def _obj_lines(path):
     with open(path) as fh:
         return [line.split() for line in fh]

@@ -58,10 +58,11 @@ def test_tracking_and_converter_slice_modules_are_checked(module):
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
-@pytest.mark.parametrize("module", ["bench.py", "graft_entry.py"])
+@pytest.mark.parametrize("module", ["bench.py", "graft_entry.py",
+                                    "profile_trace.py"])
 def test_benchmark_slice_modules_are_checked(module):
-    """The ninth slice (the benchmark's entry points and entry()) is
-    among the sources checked here."""
+    """The ninth and tenth slices (the benchmark's entry points, entry()
+    and the trace endpoint) are among the sources checked here."""
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
