@@ -82,8 +82,9 @@ Phases (any failed check raises, and the script exits non-zero):
      In phases 9-11 the kernel wrappers record the arguments of their
      first call on the driver's path, and each kernel is held against
      its plain version on those arguments after the counts are read
-     (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref|). The phases
-     (and 12-16) write under one tempfile.mkdtemp(), removed at the end,
+     (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref| and bitwise
+     over two launches). The phases
+     (and 12-18) write under one tempfile.mkdtemp(), removed at the end,
      and each prints its launch counts above the kernels line.
  12. the track driver (track.run) at full width: joint on the synthetic
      sequence (16 frames, 100 refine steps: K1 twice, K2 101, K3 100
@@ -96,9 +97,24 @@ Phases (any failed check raises, and the script exits non-zero):
      columns, batch 256 in microbatches of 32, one K1 launch each, 1 + 5
      passes), the first microbatch's K1 call held whole (all 32 images),
      its JSON line, then K1's ms a launch.
- 14. graft_entry.entry() (the twin of __graft_entry__.entry): one K2
+ 14. the render-chain benchmark (render_bench, the twin of
+     benchmarks/render_bench.py) through its own functions at batch 64:
+     224 px (tile_h 2 x 7 columns) fwd and fwd+bwd, 512 px (tile_h 1 x 7
+     columns of 80 px) fwd+bwd, reps and inner lowered to 1 and 2: each
+     run's launches exactly (1 + 3 reps) x inner K2 and, with --bwd, as
+     many K3, finite sums, its first K2 and K3 calls held whole against
+     their plain versions (K3 also bitwise over two launches), ms a batch,
+     K2 and K3 timed a launch on those calls, K2's tests made and issued
+     and its bound, the peak of allocated memory.
+ 15. the rasterizer benchmark (raster_bench, the twin of
+     benchmarks/raster_bench.py) at batch 64, tile_h 8 x one 224-px
+     column, the asset's own face order, without and with --cull: 1 + 3
+     x 5 K4 launches each, the first K4 call held whole (exact), ms a
+     batch and K4's ms a launch; then --check (mismatch 0, one launch).
+     Phases 14 and 15 print their launches on lines of their own.
+ 16. graft_entry.entry() (the twin of __graft_entry__.entry): one K2
      launch, the reference test's shapes, finite outputs, K2 held.
- 15. trace: the trace endpoint (profile_trace, the twin of
+ 17. trace: the trace endpoint (profile_trace, the twin of
      benchmarks/profile_trace.py) through its main() at its defaults
      (batch 32) and through trace() at batch 128, 3 traced calls each
      (K2 launched 1 + 3 times, 3 K2 device events in trace.json, the
@@ -112,10 +128,10 @@ Phases (any failed check raises, and the script exits non-zero):
      prints its launches on a line of its own. The busy shares of
      phases 9, 10 and 12 come from the same summary and fail on a trace
      with no device event.
- 16. data parallelism at world size 1 (one card): dryrun_multichip(1)
+ 18. data parallelism at world size 1 (one card): dryrun_multichip(1)
      over NCCL, then two train steps (batch 32) in a world-size-1 NCCL
      group, bit for bit equal to the same steps with no group.
- 17. prints the per-kernel JSON line, the card line, and as the last line
+ 19. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Weights come from a seed (the benchmark's modes: the reference's
 initialisation) and images from a seed.
@@ -195,6 +211,9 @@ VIDEO_MAE = 0.03         # MJPG decode vs source, mean |err|
 R512_BATCH = 256         # config 5: 512-px render, bench.py's render512
 R512_MICRO = 32
 DP_BATCH = 32            # world-size-1 NCCL train step
+RENDER_REPS = 1          # render_bench: reps and inner lowered from the
+RENDER_INNER = 2         # reference's 3 and 8 to keep the script short
+RENDER_RUNS = ((224, False), (224, True), (512, True))   # (--size, --bwd)
 DEVICE = "cuda"
 
 
@@ -241,7 +260,8 @@ def _live_pairs(win, cfg) -> int:
 
 
 def _tests_made(win, tile_h: int, n_cols: int, width: int):
-    """(tests, f32 ops) of K1, K2 and K4 on these windows. The tests: for
+    """(tests, f32 ops, tests issued) of K1, K2 and K4 on these windows.
+    The tests: for
     each pixel group of each column tile (ops/rasterize.pixel_group), the
     triangles of the chunks its walk visits (the column's masked chunks
     of the first 64, then every chunk beyond) that the group's cull keeps
@@ -249,11 +269,12 @@ def _tests_made(win, tile_h: int, n_cols: int, width: int):
     group's pixels inside the tile. The ops those tests need at least:
     for each kept triangle, TEST_ADDS a pixel and AXIS_OPS for each of
     the group's pixel columns and rows inside the tile (the kernels'
-    2 x 2 micro-tiles share less and issue 11 a test)."""
-    from facerecon_tpu_torch.ops.rasterize import (col_width, cull_keeps,
-                                                   pixel_group)
-    col_w = col_width(width, n_cols)
-    gw, gh = pixel_group(tile_h, col_w)
+    2 x 2 micro-tiles share less and issue 11 a test). The tests issued:
+    every lane of the group's warp tests its micro-tile, 128 pixels a
+    kept triangle, also where the group reaches past the tile."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    col_w = R.col_width(width, n_cols)
+    gw, gh = R.pixel_group(tile_h, col_w)
     setup = win.setup
     bsz, _, rows = setup.shape
     n_bands = win.blo.shape[1]
@@ -265,7 +286,7 @@ def _tests_made(win, tile_h: int, n_cols: int, width: int):
     j = torch.arange(128, device=dev)
     t_px = torch.arange(n_bands, device=dev) * tile_h
     c_px = torch.arange(n_cols, device=dev) * col_w
-    tests = ops = 0
+    tests = ops = issued = 0
     for b0 in range(0, bsz, 4):
         sl = slice(b0, b0 + 4)
         lo, n = win.blo[sl].long(), win.bn[sl].long()
@@ -288,19 +309,20 @@ def _tests_made(win, tile_h: int, n_cols: int, width: int):
                 y1 = (t_px + gy + gh - 1).float() + 0.5
                 pc, pr = min(gw, col_w - gx), min(gh, tile_h - gy)
                 kept = 0
-                live = cull_keeps(
+                live = R.cull_keeps(
                     fm[:, :, :, None], x0[:, None, None],
                     x1[:, None, None], y0[:, None, None, None],
                     y1[:, None, None, None])            # (S,T,C,64,128)
                 kept += int((live & bits[sl][..., None]).sum())
                 for f, valid in beyond:
-                    live = cull_keeps(f[:, :, :, None], x0[:, None],
+                    live = R.cull_keeps(f[:, :, :, None], x0[:, None],
                                       x1[:, None], y0[:, None, None],
                                       y1[:, None, None])    # (S,T,C,128)
                     kept += int((live & valid[:, :, None, None]).sum())
                 tests += kept * pc * pr
                 ops += kept * (TEST_ADDS * pc * pr + AXIS_OPS * (pc + pr))
-    return tests, ops
+                issued += kept * 32 * R._MICRO * R._MICRO
+    return tests, ops, issued
 
 
 def _inputs(cfg, bfm, coeff, order: str):
@@ -469,7 +491,8 @@ def _check_raster(name, main_batch, cfg, assets, rng):
               f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
               f"max|err|={err:.3g} (tri_id exact)")
         if order == "raster_rows":
-            made, n_ops = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+            made, n_ops, _ = _tests_made(win, cfg.tile_h, cfg.raster_cols,
+                                         s)
             print(f"{name}[{order}] tests made {made} of the mask walk's "
                   f"{pairs} ({made / pairs:.4f}), {n_ops / made:.3f} f32 "
                   f"ops a test")
@@ -485,12 +508,44 @@ def _check_raster(name, main_batch, cfg, assets, rng):
     return dict(result, max_abs_err=max_err), main
 
 
+def _select_grad_times(row, g, blo, bn, rows, tile_h, where) -> dict:
+    """K3's time on these inputs, the plain version's, one index_add_ of
+    the same sums (the plain version's core), a zero fill of its output
+    (the least K3 can take) and the bound. Prints them; returns the
+    kernel line's numbers."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    bsz = row.shape[0]
+    kw = dict(rows=rows, tile_h=tile_h)
+    ms = _time_ms(lambda: R.select_grad(row, g, blo, bn, **kw), reps=20)
+    plain_ms = _time_ms(lambda: R.select_grad_reference(
+        row, g, blo, bn, **kw), reps=1, warmup=0)
+    hit = row >= 0
+    src = g[:, :R._GRAD].permute(0, 2, 3, 1)[hit].contiguous()
+    dst = (row.to(torch.int64) + torch.arange(
+        bsz, device=DEVICE)[:, None, None] * rows)[hit]
+    acc = torch.zeros((bsz * rows, R._GRAD), device=DEVICE)
+    library_ms = _time_ms(lambda: acc.index_add_(0, dst, src), reps=20)
+    out = torch.empty((bsz, R._FIELDS, rows), device=DEVICE)
+    fill_ms = _time_ms(out.zero_, reps=20)
+    # the cotangent is needed only at covered pixels: a background pixel
+    # has no winner row and its g is never read
+    n_hit = int(hit.sum())
+    bound_ms, bound_by = _bound(
+        _nbytes(row, blo, bn, out) + n_hit * R._GRAD * 4,
+        n_hit * R._GRAD, f"select_grad ({where})")
+    print(f"select_grad [{where}] batch={bsz} rows={rows} covered "
+          f"px={n_hit} kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
+          f"index_add_={library_ms:.4f} ms output zero fill={fill_ms:.4f} "
+          f"ms bound={bound_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def _select_grad_once(row, blo, bn, rows, tile_h, where, seed):
     """K3 against its plain version on these winner rows with a cotangent
     drawn from a seed: max |diff| <= 1e-5 x max |ref|, two launches
-    bitwise equal, fields 17..23 zero; then its time, the plain
-    version's, one index_add_ of the same sums (the plain version's
-    core) and the bound. Returns the kernel line's numbers."""
+    bitwise equal, fields 17..23 zero; then its times and bound
+    (_select_grad_times). Returns the kernel line's numbers."""
     from facerecon_tpu_torch.ops import rasterize as R
     bsz, height, width = row.shape
     g = torch.randn((bsz, R._SEL, height, width), device=DEVICE,
@@ -509,31 +564,10 @@ def _select_grad_once(row, blo, bn, rows, tile_h, where, seed):
     if not (scale > 0 and err <= 1e-5 * scale and not got[:, 17:].any()):
         raise AssertionError(f"select_grad differs from the plain version "
                              f"by {err} (max |ref| {scale}; {where})")
-    ms = _time_ms(lambda: R.select_grad(row, g, blo, bn, **kw), reps=20)
-    plain_ms = _time_ms(lambda: R.select_grad_reference(
-        row, g, blo, bn, **kw), reps=1, warmup=0)
-    hit = row >= 0
-    src = g[:, :R._GRAD].permute(0, 2, 3, 1)[hit].contiguous()
-    dst = (row.to(torch.int64) + torch.arange(
-        bsz, device=DEVICE)[:, None, None] * rows)[hit]
-    acc = torch.zeros((bsz * rows, R._GRAD), device=DEVICE)
-    library_ms = _time_ms(lambda: acc.index_add_(0, dst, src), reps=20)
-    # the least K3 can take for its (B, 24, rows) output: a zero fill of it
-    fill_ms = _time_ms(got.zero_, reps=20)
-    # the cotangent is needed only at covered pixels: a background pixel
-    # has no winner row and its g is never read
-    n_hit = int(hit.sum())
-    bound_ms, bound_by = _bound(
-        _nbytes(row, blo, bn, got) + n_hit * R._GRAD * 4,
-        n_hit * R._GRAD, f"select_grad ({where})")
-    print(f"select_grad [{where}] batch={bsz} rows={rows} covered "
-          f"px={n_hit} kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
-          f"index_add_={library_ms:.4f} ms output zero fill={fill_ms:.4f} "
-          f"ms bound={bound_ms:.4f} ms "
-          f"max|err|={err:.3g} (max|ref| {scale:.3g}; two launches "
-          f"bitwise equal)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
+    print(f"select_grad [{where}] max|err|={err:.3g} (max|ref| "
+          f"{scale:.3g}; two launches bitwise equal)")
+    return dict(_select_grad_times(row, g, blo, bn, rows, tile_h, where),
+                max_abs_err=err)
 
 
 def check_select_grad(cfg, assets, main):
@@ -581,7 +615,8 @@ def check_select_grad(cfg, assets, main):
 def check_wide_band(cfg, assets):
     """K1, K2 and K4 on a wide band, 1,792 pixels a column tile:
     tile_h 8 with one 224-px column (benchmarks/raster_bench.py's
-    default), asset order, batch WIDE_BATCH. Each launches as it does at
+    default), in the asset's raster row order (check_raster_bench runs
+    its own face order), batch WIDE_BATCH. Each launches as it does at
     any size (one block of 128 threads a column tile of a band), is held
     against its plain version (tri_id exact; K1 color/bary within 1e-6,
     K2 and K4 exact) and is timed there."""
@@ -1037,7 +1072,7 @@ def check_end_to_end(cfg, assets):
     _hold_recorded(seen, f"headline (microbatch {MICRO})")
     (win, rec), kw = seen["shade_windows"]
     k1_ms = _time_ms(lambda: R.shade_windows(win, rec, **kw), REPS)
-    tests, n_ops = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+    tests, n_ops, _ = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
     bound_ms, bound_by = _bound(_raster_bytes(
         win, R.shade_windows(win, rec, **kw),
         _raster_kernels()["raster_shade"][3], cfg.raster_cols,
@@ -1222,7 +1257,8 @@ def _train_stage_split(pipe, state, images, lmk):
 # the path's kernel wrappers in ops.rasterize -> the kernel each launches
 _WRAPPERS = {"shade_windows": "raster_shade",
              "select_windows": "raster_select",
-             "select_grad": "select_grad"}
+             "select_grad": "select_grad",
+             "pos_windows": "raster_pos"}
 
 
 def _copy(x):
@@ -1263,7 +1299,8 @@ def _recording(*names):
 def _hold_recorded(seen, where) -> dict:
     """Each recorded first call's kernel against its plain version on the
     same arguments: K1 tri_id exact, color and bary within 1e-6; K2
-    tri_id, row and sel exactly equal; K3 within 1e-5 x max |ref|.
+    tri_id, row and sel exactly equal; K3 within 1e-5 x max |ref| and
+    two launches bitwise equal; K4 tri_id, zbuf and row exactly equal.
     Fails if a wrapper the recording was opened for was never called.
     Returns kernel name -> max |err|; prints one line."""
     from facerecon_tpu_torch.ops import rasterize as R
@@ -1283,11 +1320,16 @@ def _hold_recorded(seen, where) -> dict:
                 raise AssertionError(f"select_grad differs from the plain "
                                      f"version by {err} (max |ref| "
                                      f"{scale}; {where})")
+            if not torch.equal(got, getattr(R, wrapper)(*args, **kw)):
+                raise AssertionError(f"select_grad is not deterministic: "
+                                     f"two launches differ ({where})")
         else:
             err = _hold(name, got, ref, where)
         errs[name] = err
-        # args[1]: the records (B, 24, rows) or K3's cotangent (B, 20, H, W)
-        parts.append(f"{name} on {tuple(args[1].shape)} max|err| {err:.3g}")
+        # the records (B, 24, rows), K3's cotangent (B, 20, H, W) or, for
+        # K4, which takes the windows alone, the setup (B, 16, rows)
+        shape = args[1].shape if len(args) > 1 else args[0].setup.shape
+        parts.append(f"{name} on {tuple(shape)} max|err| {err:.3g}")
         del got, ref
     print(f"{where}: the path's first call of each kernel held against "
           f"its plain version: " + ", ".join(parts))
@@ -1840,6 +1882,166 @@ def check_render512():
     return launches
 
 
+def _raster_bound(name, win, kw, got):
+    """(tests made, tests issued, bound_ms, bound_by) of rasterizer `name`
+    on these windows, launched with kw, whose outputs are got."""
+    made, n_ops, issued = _tests_made(win, kw["tile_h"], kw["n_cols"],
+                                      kw["width"])
+    bound_ms, bound_by = _bound(
+        _raster_bytes(win, got, _raster_kernels()[name][3], kw["n_cols"],
+                      kw["n_faces"]), n_ops, f"{name} (tile_h {kw['tile_h']})")
+    return made, issued, bound_ms, bound_by
+
+
+def check_render_bench():
+    """The render-chain benchmark (render_bench, the twin of
+    benchmarks/render_bench.py) through its own functions at its default
+    batch (64) on default_config's asset, for each of RENDER_RUNS: 224 px
+    (tile_h 2 x 7 columns) fwd and fwd+bwd, and 512 px (tile_h 1 x 7
+    columns of 80 px) fwd+bwd; reps and inner lowered to RENDER_REPS and
+    RENDER_INNER. For each run, the counters reset just before and read
+    just after: (1 + 3 reps) x inner K2 launches, as many K3 with --bwd,
+    and nothing else; the chains' sums finite; the first K2 and K3 calls
+    held whole against their plain versions (K2 exact, K3 within 1e-5 x
+    max |ref| and bitwise over two launches); ms a batch and faces/s;
+    K2's and K3's ms a launch on the recorded calls, K2's tests made (in
+    the tile) and issued (the micro-tiles' whole groups) and its bound,
+    K3's bound and index_add_ (_select_grad_times); the peak of
+    allocated memory. Returns the launches summed."""
+    from facerecon_tpu_torch import render_bench
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
+    total = collections.Counter()
+    none = dict.fromkeys(_build.KERNELS, 0)
+    batch = render_bench.parse_args([]).batch
+    for size, bwd in RENDER_RUNS:
+        t0 = time.perf_counter()
+        tile_h = render_bench.default_tile_h(size)
+        tag = "fwd+bwd" if bwd else "fwd"
+        where = f"render_bench {size} px {tag}"
+        cfg, bfm, coeffs, target = render_bench.setup(size, batch, tile_h,
+                                                      DEVICE)
+        one = render_bench.make_one(cfg, bfm, target, bwd)
+        names = ("select_windows", "select_grad") if bwd else (
+            "select_windows",)
+        torch.cuda.reset_peak_memory_stats()
+        with _recording(*names) as seen:
+            _build.reset_launches()
+            res = render_bench.run(one, coeffs, RENDER_REPS, RENDER_INNER,
+                                   tag)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = (1 + 3 * RENDER_REPS) * RENDER_INNER
+        want = {**none, "raster_select": n, "select_grad": n if bwd else 0}
+        if launches != want:
+            raise AssertionError(f"{where} launched {launches}, not {want}")
+        if not (np.isfinite(res["first_sum"]) and np.isfinite(res["sum"])):
+            raise AssertionError(f"{where}: non-finite sums {res}")
+        total.update(launches)
+        t_hold = time.perf_counter()
+        _hold_recorded(seen, where)
+        t_hold = time.perf_counter() - t_hold
+        (win, rec), kw = seen["select_windows"]
+        got = R.select_windows(win, rec, **kw)
+        k2_ms = _time_ms(lambda: R.select_windows(win, rec, **kw), REPS)
+        made, issued, bound_ms, bound_by = _raster_bound("raster_select",
+                                                         win, kw, got)
+        del got
+        k3 = ""
+        if bwd:
+            args, gkw = seen["select_grad"]
+            k3_ms = _select_grad_times(*args, gkw["rows"], gkw["tile_h"],
+                                       where)["ms"]
+            k3 = f", K3 {k3_ms:.4f} ms a launch"
+        _, ms, faces_s = res["runs"][-1]
+        col_w = R.col_width(size, cfg.raster_cols)
+        print(f"{where}: batch {batch}, tile_h {tile_h} x "
+              f"{cfg.raster_cols} columns of {col_w} px, reps "
+              f"{RENDER_REPS} and inner {RENDER_INNER} (the reference's "
+              f"3 and 8 lowered); {ms:.3f} ms/{batch} -> "
+              f"{faces_s:.1f} faces/s (reps={2 * RENDER_REPS}); K2 "
+              f"{k2_ms:.4f} ms a launch{k3}; K2 tests made {made}, issued "
+              f"{issued} ({made / issued:.4f} of them in the tile); K2 "
+              f"bound {bound_ms:.4f} ms by {bound_by}; plain holds "
+              f"{t_hold:.1f} s; peak allocated {peak:.2f} GiB; launches "
+              f"{launches}; {time.perf_counter() - t0:.1f} s on "
+              f"{_card_line()}")
+        del seen, win, rec, res, one, cfg, bfm, coeffs, target
+        torch.cuda.empty_cache()
+    return {k: total[k] for k in _build.KERNELS}
+
+
+def check_raster_bench():
+    """The rasterizer benchmark (raster_bench, the twin of
+    benchmarks/raster_bench.py) through its own functions at its
+    defaults (batch 64, 224 px, 5 reps): default_config's vertices, tile_h
+    8 x one 224-px column, the asset's own face order, without and with
+    back-face culling. For each, the counters reset just before and read
+    just after: 1 + 3 x reps K4 launches and
+    nothing else; the first call's sum equals the last call's; the first
+    K4 call held whole against its plain version (exact); ms a batch and
+    faces/s, and K4's ms a launch (without culling also its tests made
+    and issued and its bound). Then --check (rasterize_batch on the
+    card against a CPU copy on the first face): a mismatch of 0, one K4
+    launch. Returns the launches summed."""
+    from facerecon_tpu_torch import raster_bench
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
+    total = collections.Counter()
+    none = dict.fromkeys(_build.KERNELS, 0)
+    args = raster_bench.parse_args([])
+    vndc, faces = raster_bench.geometry(args.batch, DEVICE)
+    s = args.size
+    for cull in (False, True):
+        where = f"raster_bench{' --cull' if cull else ''}"
+        pos_fn = raster_bench.make_pos_fn(s, args.tileh, cull)
+        with _recording("pos_windows") as seen:
+            _build.reset_launches()
+            res = raster_bench.run(pos_fn, vndc, faces, args.reps)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        want = {**none, "raster_pos": 1 + 3 * args.reps}
+        if launches != want:
+            raise AssertionError(f"{where} launched {launches}, not {want}")
+        if res["chk"] != int(res["out"].sum()):
+            raise AssertionError(f"{where}: the first call's sum "
+                                 f"{res['chk']} is not the last call's")
+        total.update(launches)
+        t_hold = time.perf_counter()
+        _hold_recorded(seen, where)
+        t_hold = time.perf_counter() - t_hold
+        (win,), kw = seen["pos_windows"]
+        k4_ms = _time_ms(lambda: R.pos_windows(win, **kw), REPS)
+        bound = ""
+        if not cull:
+            made, issued, bound_ms, bound_by = _raster_bound(
+                "raster_pos", win, kw, R.pos_windows(win, **kw))
+            bound = (f"; K4 tests made {made}, issued {issued}, bound "
+                     f"{bound_ms:.4f} ms by {bound_by}")
+        cover = float((res["out"] >= 0).float().mean())
+        _, ms, faces_s = res["runs"][-1]
+        print(f"{where}: batch {args.batch}, tile_h {args.tileh} x one "
+              f"{s}-px column, the asset's face order, max bn "
+              f"{int(win.bn.max())}, coverage {cover:.4f}; {ms:.3f} "
+              f"ms/{args.batch} -> {faces_s:.1f} faces/s "
+              f"(reps={2 * args.reps}); K4 {k4_ms:.4f} ms a launch"
+              f"{bound}; plain hold {t_hold:.1f} s; launches {launches} on "
+              f"{_card_line()}")
+        del seen, win, res
+    _build.reset_launches()
+    mismatch = raster_bench.check(vndc, faces, s)
+    launches = dict(_build.LAUNCHES)
+    if mismatch != 0 or launches != {**none, "raster_pos": 1}:
+        raise AssertionError(f"raster_bench --check: mismatch {mismatch}, "
+                             f"launches {launches}")
+    total.update(launches)
+    print(f"raster_bench --check: mismatch vs plain: {mismatch} / {s * s}")
+    del vndc, faces
+    torch.cuda.empty_cache()
+    return {k: total[k] for k in _build.KERNELS}
+
+
 def check_entry():
     """graft_entry.entry() on the card: fn(*args) (the BN model as the
     reference initialises it, zeros (8, 224, 224, 3), the differentiable
@@ -2112,6 +2314,10 @@ def main() -> int:
         driver_launches.update(_timed("track", check_track, cfg, assets,
                                       tmp))
         driver_launches["render512"] = _timed("render512", check_render512)
+        driver_launches["render_bench"] = _timed("render_bench",
+                                                 check_render_bench)
+        driver_launches["raster_bench"] = _timed("raster_bench",
+                                                 check_raster_bench)
         driver_launches["entry"] = _timed("entry", check_entry)
         driver_launches["trace"] = _timed("trace", check_trace, cfg, assets,
                                           tmp)
@@ -2140,7 +2346,7 @@ def main() -> int:
     for phase, n in driver_launches.items():
         print(f"{phase} launches: raster_shade {n['raster_shade']}, "
               f"raster_select {n['raster_select']}, select_grad "
-              f"{n['select_grad']}")
+              f"{n['select_grad']}, raster_pos {n['raster_pos']}")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,6 +25,12 @@ each pass; train: K2 and K3 once a step), with finite outputs, and
 graft_entry.entry() launches K2 once, its call equal to the plain
 version. The trace endpoint (profile_trace) at a small batch launches
 K2 once a call, and its trace holds one K2 device event a traced call.
+The render-chain benchmark's bwd call at 512 px (render_bench: tile_h 1
+x 7 columns of 80 px) launches K2 and K3 once each, both held against
+their plain versions; K4 at raster_bench's shape with --cull (tile_h 8 x
+one 224-px column, the asset's face order) equals its plain version;
+the twins' mains launch exactly (1 + 3 reps) x inner K2 (and K3 with
+--bwd), and 1 + 3 reps K4 plus one for --check.
 """
 
 import dataclasses
@@ -694,3 +700,104 @@ def test_trace_twin_holds_its_select_events(card, tmp_path):
                             "select_grad": 0, "raster_pos": 0,
                             "ctz_walk": 0}
     assert 0 < s["busy_share"] <= 1
+
+
+def _recorded(monkeypatch, *names):
+    """Wraps ops.rasterize's named wrappers to keep a copy of the
+    arguments of their first call; returns name -> (args, kwargs)."""
+    seen = {}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            if name not in seen:
+                seen[name] = (tuple(
+                    x.detach().clone() if isinstance(x, torch.Tensor)
+                    else type(x)(*(t.clone() for t in x))
+                    if isinstance(x, R.Windows) else x for x in a), dict(kw))
+            return fn(*a, **kw)
+        return call
+    for n in names:
+        monkeypatch.setattr(R, n, wrap(n, getattr(R, n)))
+    return seen
+
+
+def test_render_bench_select_at_512px_matches_plain(card, monkeypatch):
+    """render_bench's bwd call at 512 px (default_config's asset, focal
+    scaled, tile_h 1 x 7 columns of 80 px), batch 2: one K2 and one K3
+    launch; K2's call exactly equal to its plain version, K3's within
+    1e-5 x max |ref| and bitwise equal over two launches; finite."""
+    from facerecon_tpu_torch import render_bench
+    cfg, bfm, coeffs, target = render_bench.setup(512, 2, device=card)
+    assert (cfg.tile_h, cfg.raster_cols) == (1, 7)
+    seen = _recorded(monkeypatch, "select_windows", "select_grad")
+    before = dict(_build.LAUNCHES)
+    s = render_bench.make_one(cfg, bfm, target, bwd=True)(coeffs)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    monkeypatch.undo()
+    assert launched == {"raster_shade": 0, "raster_select": 1,
+                        "select_grad": 1, "raster_pos": 0, "ctz_walk": 0}
+    assert bool(torch.isfinite(s))
+    a, kw = seen["select_windows"]
+    assert kw["tile_h"] == 1 and kw["n_cols"] == 7 and kw["height"] == 512
+    got = R.select_windows(*a, **kw)
+    ref = R.select_windows_reference(*a, **kw)
+    assert float((ref[0] >= 0).float().mean()) > 0.05
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    a, kw = seen["select_grad"]
+    got, again = R.select_grad(*a, **kw), R.select_grad(*a, **kw)
+    assert torch.equal(got, again)
+    ref = R.select_grad_reference(*a, **kw)
+    scale = float(ref.abs().max())
+    assert scale > 0 and float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_raster_bench_pos_culled_wide_band_matches_plain(card):
+    """K4 as raster_bench runs it with --cull: default_config's asset at
+    224 px, tile_h 8 x one 224-px column, the asset's own face order,
+    back faces culled, batch 2: exactly equal to its plain version, and
+    pos_fn's tri_id is that of K4."""
+    from facerecon_tpu_torch import raster_bench
+    vndc, faces = raster_bench.geometry(2, card)
+    win = R.band_windows(vndc, faces, torch.arange(faces.shape[0],
+                                                   device=card),
+                         224, 224, 8, 1, cull_backfaces=True)
+    kw = dict(height=224, width=224, tile_h=8, n_cols=1,
+              n_faces=faces.shape[0])
+    got = R.pos_windows(win, **kw)
+    ref = R.pos_windows_reference(win, **kw)
+    assert float((ref[0] >= 0).float().mean()) > 0.05
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    tid, chk = raster_bench.make_pos_fn(224, 8, cull=True)(vndc, faces)
+    assert torch.equal(tid, got[0]) and int(chk) == int(got[0].sum())
+
+
+@pytest.mark.parametrize("twin", ["render", "render_bwd", "raster"])
+def test_bench_twins_launch_their_kernels(card, monkeypatch, twin):
+    """The twins' mains at tiny_config() (default_config swapped for it):
+    render_bench (1 + 3 reps) x inner K2 launches, as many K3 with
+    --bwd; raster_bench 1 + 3 reps K4 launches and one more for --check,
+    whose mismatch is 0; nothing else."""
+    from facerecon_tpu_torch import raster_bench, render_bench
+    mod = raster_bench if twin == "raster" else render_bench
+    monkeypatch.setattr(mod, "default_config",
+                        lambda **over: tiny_config(**over))
+    before = dict(_build.LAUNCHES)
+    if twin == "raster":
+        res = raster_bench.main(["--batch", "2", "--reps", "1", "--size",
+                                 "64", "--check"])
+        want = {"raster_pos": 1 + 3 + 1}
+        assert res["mismatch"] == 0
+    else:
+        bwd = twin == "render_bwd"
+        res = render_bench.main(["--batch", "2", "--reps", "1", "--inner",
+                                 "2", "--size", "64", "--tileh", "2"]
+                                + (["--bwd"] if bwd else []))
+        n = (1 + 3) * 2
+        want = {"raster_select": n, "select_grad": n if bwd else 0}
+        assert np.isfinite(res["sum"])
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: want.get(k, 0) for k in launched}

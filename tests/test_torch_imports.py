@@ -59,10 +59,12 @@ def test_tracking_and_converter_slice_modules_are_checked(module):
 
 
 @pytest.mark.parametrize("module", ["bench.py", "graft_entry.py",
-                                    "profile_trace.py"])
+                                    "profile_trace.py", "render_bench.py",
+                                    "raster_bench.py"])
 def test_benchmark_slice_modules_are_checked(module):
-    """The ninth and tenth slices (the benchmark's entry points, entry()
-    and the trace endpoint) are among the sources checked here."""
+    """The ninth, tenth and eleventh slices (the benchmark's entry points,
+    entry(), the trace endpoint, the render-chain and rasterizer
+    benchmarks) are among the sources checked here."""
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
