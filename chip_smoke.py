@@ -84,7 +84,7 @@ Phases (any failed check raises, and the script exits non-zero):
      its plain version on those arguments after the counts are read
      (K1 and K2 as in phase 3, K3 within 1e-5 x max |ref| and bitwise
      over two launches). The phases
-     (and 12-18) write under one tempfile.mkdtemp(), removed at the end,
+     (and 12-19) write under one tempfile.mkdtemp(), removed at the end,
      and each prints its launch counts above the kernels line.
  12. the track driver (track.run) at full width: joint on the synthetic
      sequence (16 frames, 100 refine steps: K1 twice, K2 101, K3 100
@@ -112,9 +112,22 @@ Phases (any failed check raises, and the script exits non-zero):
      x 5 K4 launches each, the first K4 call held whole (exact), ms a
      batch and K4's ms a launch; then --check (mismatch 0, one launch).
      Phases 14 and 15 print their launches on lines of their own.
- 16. graft_entry.entry() (the twin of __graft_entry__.entry): one K2
+ 16. the probes' twins (facerecon_tpu_torch/benchmarks/: calib_probe,
+     roofline_probe, cnn_probe, cnn_micro_probe, gather_probe and
+     scatter_probe, twins of benchmarks/<the same>.py) through their own
+     functions at the reference's defaults, each printing its case lines
+     and the card: the chained timer's intercept, the card's copy and
+     bf16 matmul rates beside the data sheet's, the fused CNN's stage
+     deltas at batch 64, the stem forms, the gather forms, the
+     scatter-min, the element gather and the sort. The counters reset
+     just before and read just after: no port kernel launched. The s2d
+     and native stems agree (bf16 within 2^-6 x max |ref|, f32 within
+     1e-5), the reference's two pool forms differ, the 1-pass scatter-min
+     of the first image equals numpy's minimum.at, and each gather form
+     on the first image equals its CPU result.
+ 17. graft_entry.entry() (the twin of __graft_entry__.entry): one K2
      launch, the reference test's shapes, finite outputs, K2 held.
- 17. trace: the trace endpoint (profile_trace, the twin of
+ 18. trace: the trace endpoint (profile_trace, the twin of
      benchmarks/profile_trace.py) through its main() at its defaults
      (batch 32) and through trace() at batch 128, 3 traced calls each
      (K2 launched 1 + 3 times, 3 K2 device events in trace.json, the
@@ -128,10 +141,10 @@ Phases (any failed check raises, and the script exits non-zero):
      prints its launches on a line of its own. The busy shares of
      phases 9, 10 and 12 come from the same summary and fail on a trace
      with no device event.
- 18. data parallelism at world size 1 (one card): dryrun_multichip(1)
+ 19. data parallelism at world size 1 (one card): dryrun_multichip(1)
      over NCCL, then two train steps (batch 32) in a world-size-1 NCCL
      group, bit for bit equal to the same steps with no group.
- 19. prints the per-kernel JSON line, the card line, and as the last line
+ 20. prints the per-kernel JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 Weights come from a seed (the benchmark's modes: the reference's
 initialisation) and images from a seed.
@@ -214,6 +227,9 @@ DP_BATCH = 32            # world-size-1 NCCL train step
 RENDER_REPS = 1          # render_bench: reps and inner lowered from the
 RENDER_INNER = 2         # reference's 3 and 8 to keep the script short
 RENDER_RUNS = ((224, False), (224, True), (512, True))   # (--size, --bwd)
+PROBE_STEM_BF16 = 2.0 ** -6   # the stems in bf16: each output rounded twice
+PROBE_STEM_F32 = 1e-5         # (accumulator, then after the bias), x max
+PROBE_GATHER = 1e-6           # gather forms, card against CPU, x max |ref|
 DEVICE = "cuda"
 
 
@@ -2042,6 +2058,140 @@ def check_raster_bench():
     return {k: total[k] for k in _build.KERNELS}
 
 
+def _probe_cases(name, cases, inner, reps, t0, card):
+    """Fails on a non-finite or non-positive time or a non-finite sum;
+    prints the twin's summary line."""
+    for c in cases:
+        if not (np.isfinite([c.seconds, c.first, c.last]).all()
+                and c.seconds > 0):
+            raise AssertionError(f"{name} {c.tag!r}: non-finite result {c}")
+    print(f"probe {name}: {len(cases)} cases at the reference's defaults, "
+          f"inner {inner} and reps {reps} (none lowered), "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+
+
+def check_bench_probes():
+    """The probes' twins (facerecon_tpu_torch/benchmarks/, twins of
+    benchmarks/calib_probe, roofline_probe, cnn_probe, cnn_micro_probe,
+    gather_probe and scatter_probe) through their own functions at the
+    reference's defaults, each printing its case lines. Fails on a
+    non-finite time or sum; on any launch of a port kernel in the phase
+    (counters reset just before, read just after); on the two stems
+    differing by more than PROBE_STEM_BF16 x max |ref| in bf16 or
+    PROBE_STEM_F32 x max |ref| in f32; on pool_slices agreeing with
+    pool_rw (the reference's two forms differ, and the twin keeps both);
+    on the 1-pass scatter-min of the first image differing from numpy's
+    minimum.at on its CPU copy; on a gather form differing from its CPU
+    result (the first image, PROBE_GATHER x max |ref|: exact but for the
+    adjacency's sums). Returns the launches."""
+    from facerecon_tpu_torch.benchmarks import (calib_probe, cnn_micro_probe,
+                                                cnn_probe, gather_probe,
+                                                roofline_probe, scatter_probe)
+    from facerecon_tpu_torch.ops import _build
+    card = _card_line()
+    _build.reset_launches()
+
+    t0 = time.perf_counter()
+    cases = calib_probe.run(*calib_probe.make_inputs(
+        calib_probe.knobs()["batch"], DEVICE))
+    _probe_cases("calib_probe", cases, calib_probe.INNER,
+                 calib_probe.REPS, t0, card)
+
+    t0 = time.perf_counter()
+    big, a, b = roofline_probe.make_inputs(DEVICE)
+    cases = roofline_probe.run(big, a, b)
+    del big, a, b
+    torch.cuda.empty_cache()
+    _probe_cases("roofline_probe", cases, roofline_probe.INNER,
+                 roofline_probe.REPS, t0, card)
+
+    t0 = time.perf_counter()
+    k = cnn_probe.knobs()
+    model, images = cnn_probe.model_and_images(k["batch"], DEVICE,
+                                               k["dtype"], k["wdtype"])
+    cases = cnn_probe.run(model, images, k["inner"], k["reps"])
+    del model, images
+    torch.cuda.empty_cache()
+    _probe_cases("cnn_probe", cases, k["inner"], k["reps"], t0, card)
+
+    t0 = time.perf_counter()
+    d = cnn_micro_probe.make_inputs(cnn_micro_probe.knobs()["batch"], DEVICE)
+    cases = cnn_micro_probe.run(d)
+    with torch.no_grad():
+        for dt, tol in ((torch.bfloat16, PROBE_STEM_BF16),
+                        (torch.float32, PROBE_STEM_F32)):
+            y4 = cnn_micro_probe.conv4(d["img"], d["w4"].to(dt), d["b0"])
+            y7 = cnn_micro_probe.conv7(d["img"], d["w7"].to(dt), d["b0"])
+            scale = float(y7.float().abs().max())
+            err = float((y4.float() - y7.float()).abs().max())
+            print(f"cnn_micro_probe stems, {str(dt)[6:]}: max|conv4 - "
+                  f"conv7| {err:.3g} of max|conv7| {scale:.3g} (bound "
+                  f"{tol:.3g} x max)")
+            if not (scale > 0 and err <= tol * scale):
+                raise AssertionError(f"the stems differ in {dt}: {err} > "
+                                     f"{tol} x {scale}")
+        differ = float((cnn_micro_probe.pool_rw(y7)
+                        != cnn_micro_probe.pool_slices(y7)).float().mean())
+    print(f"cnn_micro_probe pools: pool_rw and pool_slices differ at "
+          f"{differ:.4f} of the outputs (the reference's two forms)")
+    if not differ > 0.5:
+        raise AssertionError(f"pool_slices agrees with pool_rw ({differ})")
+    del d, y4, y7
+    torch.cuda.empty_cache()
+    _probe_cases("cnn_micro_probe", cases, cnn_micro_probe.INNER,
+                 cnn_micro_probe.REPS, t0, card)
+
+    t0 = time.perf_counter()
+    d = gather_probe.make_inputs(gather_probe.knobs()["batch"], DEVICE)
+    cases = gather_probe.run(d)
+    worst = 0.0
+    with torch.no_grad():
+        for tag, form, x, i in gather_probe.CASES:
+            ix = d[i] if i != "bidx" else d[i][:1]
+            got = form(d[x][:1], ix)
+            want = form(d[x][:1].cpu(), ix.cpu())
+            for g, w in zip(got, want):
+                err = float((g.cpu() - w).abs().max())
+                worst = max(worst, err / float(w.abs().max()))
+                if err > PROBE_GATHER * float(w.abs().max()):
+                    raise AssertionError(f"gather {tag!r} differs from its "
+                                         f"CPU result by {err}")
+    print(f"gather_probe forms on the first image against the CPU: worst "
+          f"max|diff| {worst:.3g} of max|ref|")
+    del d
+    torch.cuda.empty_cache()
+    _probe_cases("gather_probe", cases, gather_probe.INNER,
+                 gather_probe.REPS, t0, card)
+
+    t0 = time.perf_counter()
+    k = scatter_probe.knobs()
+    idx, zb, ids = scatter_probe.make_inputs(k["batch"], k["m"], k["size"],
+                                             DEVICE)
+    cases = scatter_probe.run(idx, zb, ids, k["size"], k["batch"])
+    hw = k["size"] ** 2
+    with torch.no_grad():
+        gi = scatter_probe.flat_index(idx, hw, torch.zeros((), device=DEVICE))
+        got = scatter_probe.scatter_min(gi, zb.reshape(-1),
+                                        k["batch"] * hw)[:hw].cpu().numpy()
+    ref = np.full(hw, scatter_probe.INT32_MAX, np.int64)
+    np.minimum.at(ref, idx[0].cpu().numpy(), zb[0].cpu().numpy())
+    if not np.array_equal(got, ref):
+        raise AssertionError("the 1-pass scatter-min of image 0 differs "
+                             "from numpy's minimum.at")
+    print(f"scatter_probe: the 1-pass scatter-min of image 0 equals numpy's "
+          f"minimum.at ({int((ref < scatter_probe.INT32_MAX).sum())} of "
+          f"{hw} px hit)")
+    del idx, zb, ids, gi
+    torch.cuda.empty_cache()
+    _probe_cases("scatter_probe", cases, scatter_probe.INNER,
+                 scatter_probe.REPS, t0, card)
+
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"the probes launched port kernels: {launches}")
+    return launches
+
 def check_entry():
     """graft_entry.entry() on the card: fn(*args) (the BN model as the
     reference initialises it, zeros (8, 224, 224, 3), the differentiable
@@ -2318,6 +2468,7 @@ def main() -> int:
                                                  check_render_bench)
         driver_launches["raster_bench"] = _timed("raster_bench",
                                                  check_raster_bench)
+        driver_launches["probes"] = _timed("probes", check_bench_probes)
         driver_launches["entry"] = _timed("entry", check_entry)
         driver_launches["trace"] = _timed("trace", check_trace, cfg, assets,
                                           tmp)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from facerecon_tpu_torch.bench import _device
+from facerecon_tpu_torch.benchmarks import _timing
 from facerecon_tpu_torch.config import default_config
 from facerecon_tpu_torch.data.synthetic import sample_coeffs
 from facerecon_tpu_torch.ops.geometry import device_bfm
@@ -103,13 +104,7 @@ def chain(one: Callable, cv: torch.Tensor, inner: int) -> torch.Tensor:
     """`inner` calls of one() in a row, each on cv * (1 + carry * 1e-30)
     with carry the previous call's scalar * 1e-30: the sum of their
     scalars, with no host read."""
-    carry = cv.new_zeros(())
-    ss = []
-    for _ in range(inner):
-        s = one(cv * (1.0 + carry * 1e-30))
-        carry = s * 1e-30
-        ss.append(s)
-    return torch.stack(ss).sum()
+    return _timing.chain(one, (cv,), inner)
 
 
 def parse_args(argv=None):

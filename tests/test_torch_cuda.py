@@ -30,7 +30,12 @@ x 7 columns of 80 px) launches K2 and K3 once each, both held against
 their plain versions; K4 at raster_bench's shape with --cull (tile_h 8 x
 one 224-px column, the asset's face order) equals its plain version;
 the twins' mains launch exactly (1 + 3 reps) x inner K2 (and K3 with
---bwd), and 1 + 3 reps K4 plus one for --check.
+--bwd), and 1 + 3 reps K4 plus one for --check. The probes' twins
+(facerecon_tpu_torch/benchmarks/): the s2d stem and the native 7x7/s2
+stem agree on the card (f32 within 1e-5 x max |ref|, bf16 within 2^-6 x
+max |ref|: each output rounded twice to bf16), the two pool forms differ
+as on the CPU, and the scatter-min on the card equals the CPU's; none
+of them launches a port kernel.
 """
 
 import dataclasses
@@ -801,3 +806,44 @@ def test_bench_twins_launch_their_kernels(card, monkeypatch, twin):
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     assert launched == {k: want.get(k, 0) for k in launched}
+
+
+def test_probe_stems_agree_on_card(card):
+    """cnn_micro_probe's stems at batch 2 on the card: conv4 on s2d input
+    against conv7/s2, in f32 (TF32 off) and in bf16; pool_rw and
+    pool_slices differ at the same outputs as on the CPU."""
+    from facerecon_tpu_torch.benchmarks import cnn_micro_probe as MIC
+    before = dict(_build.LAUNCHES)
+    d = MIC.make_inputs(2, card)
+    img, b0 = d["img"], d["b0"]
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -6)):
+        a = MIC.conv4(img, d["w4"].to(dt), b0)
+        b = MIC.conv7(img, d["w7"].to(dt), b0)
+        assert a.dtype == dt and a.shape == (2, 112, 112, 64)
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+    y = MIC.conv7(img, d["w7"].float(), b0)
+    differ = MIC.pool_rw(y) != MIC.pool_slices(y)
+    yc = y.cpu()
+    assert torch.equal(differ.cpu(), MIC.pool_rw(yc) != MIC.pool_slices(yc))
+    assert float(differ.float().mean()) > 0.5
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_probe_scatter_min_on_card_equals_cpu(card):
+    """scatter_probe's pass 1 and two-pass form at batch 2, 4,096
+    candidates, 224 px, on the card against the same calls on a CPU copy
+    (exact), and pass 1 of image 0 against numpy's minimum.at."""
+    from facerecon_tpu_torch.benchmarks import scatter_probe as SCA
+    idx, zb, ids = SCA.make_inputs(2, 4096, 224, card)
+    hw, n = 224 * 224, 2 * 224 * 224
+    gi = SCA.flat_index(idx, hw, torch.zeros((), device=card))
+    got = SCA.two_pass(gi, zb.reshape(-1), ids.reshape(-1), n)
+    want = SCA.two_pass(gi.cpu(), zb.reshape(-1).cpu(),
+                        ids.reshape(-1).cpu(), n)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    ref = np.full(hw, SCA.INT32_MAX, np.int64)
+    np.minimum.at(ref, idx[0].cpu().numpy(), zb[0].cpu().numpy())
+    np.testing.assert_array_equal(got[0][:hw].cpu().numpy(), ref)

@@ -68,6 +68,17 @@ def test_benchmark_slice_modules_are_checked(module):
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "benchmarks/_timing.py", "benchmarks/calib_probe.py",
+    "benchmarks/roofline_probe.py", "benchmarks/cnn_probe.py",
+    "benchmarks/cnn_micro_probe.py", "benchmarks/gather_probe.py",
+    "benchmarks/scatter_probe.py"])
+def test_probe_slice_modules_are_checked(module):
+    """The probes' twins (the twelfth slice) are among the sources checked
+    here."""
+    assert ROOT / "facerecon_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
