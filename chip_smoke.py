@@ -57,12 +57,25 @@ Phases (any failed check raises, and the script exits non-zero):
      frontal coefficients), each real-mask call held against its plain
      version on its first 32 images, then timed with the real chunk masks
      and with every bit set: ms per launch and the cost of each tested
-     chunk added.
+     chunk added. Then the ablated builds of each (the reference's
+     RP_ABLATE through the twin facerecon_tpu_torch/benchmarks/
+     floor_probe.py: dma, eval, sel, pack, cull and merge alone, and the
+     skeleton sel,eval,dma,pack; K4 has no sel), all built together, each
+     launched on the real masks into sentinel-filled outputs and timed
+     beside the full kernel with its SASS opcode mix. Values are not
+     checked, except where the function is known: cull alone equals the
+     full kernel bit for bit, eval alone gives background everywhere,
+     pack alone leaves the outputs untouched. The phase prints its wall
+     time.
   8. K6 (ctz_walk): the live-chunk walk probe against its plain version
      at benchmarks/ctzloop_probe.py's shape (2,048 programs, 4/8/16/32
      live bits), exactly equal, then timed (counters reset just before):
      ns per live chunk; its bound is that of the per-program walk the
-     probe makes, with the function's own bound printed beside it.
+     probe makes, with the function's own bound printed beside it. The
+     probe's other walk (looped=0: each bit tested in turn, the
+     CTZ_UNROLLED build, through the twin benchmarks/ctzloop_probe.py)
+     is held exactly for each live count and timed after the counted
+     run, beside the __ffs walk.
   9. the fit driver (fit.make_fit_fn, batch 8 synthetic targets, 50
      Adam steps, landmarks on): the counted, timed fit (one K2 and one K3
      launch a step, one more K2 for the final loss; the loss falls), then
@@ -153,6 +166,7 @@ initialisation) and images from a seed.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -203,10 +217,11 @@ FLOOR_BATCH = 128    # K5: benchmarks/floor_probe.py's defaults
 FLOOR_TILE_H = 2
 FLOOR_COLS = 4
 FLOOR_CHECK = 32     # K5 images held against the plain versions
+FLOOR_SKELETON = "sel,eval,dma,pack"   # floor_probe.py:6's skeleton
+FLOOR_SENTINEL = -12345   # fills the outputs of the ablated launches
 WIDE_TILE_H = 8      # wide band: tile_h 8 x one 224-px column
 WIDE_BATCH = 4
 WALK_PROGS = 2048    # K6: benchmarks/ctzloop_probe.py's shape
-WALK_LIVE = (4, 8, 16, 32)
 WALK_REPORTED = 8    # live bits of the K6 line in the kernels JSON
 FIT_BATCH = 8        # fit driver: synthetic targets
 FIT_DRIVER_STEPS = 50    # fit driver: Adam steps (lr 5e-3)
@@ -839,15 +854,88 @@ def check_evaluate():
     torch.cuda.empty_cache()
 
 
+def _floor_settings(mode: str):
+    """The RP_ABLATE settings the floor phase times for FLOOR_KMODE
+    `mode`: each phase alone, then the reference's skeleton; K4 (pos)
+    has no select, so it skips `sel` in both."""
+    from facerecon_tpu_torch.benchmarks import floor_probe as FP
+    keep = [p for p in FP.ABLATE if not (mode == "pos" and p == "sel")]
+    skeleton = [p for p in FLOOR_SKELETON.split(",")
+                if not (mode == "pos" and p == "sel")]
+    return keep + [",".join(skeleton)]
+
+
+def _floor_builds():
+    """Every ablated build of K1, K2 and K4 the floor phase times, each
+    nvcc (then cuobjdump) started together. Returns {(mode, setting):
+    (macros, SASS opcode mix)} and prints each new build's ptxas
+    lines."""
+    from facerecon_tpu_torch.benchmarks import floor_probe as FP
+    from facerecon_tpu_torch.ops import _build
+    jobs = {(mode, setting): FP.ablation(setting, mode)
+            for mode in FP.MODES for setting in _floor_settings(mode)}
+
+    def build(job):
+        name, defines = FP.MODES[job[0]], jobs[job]
+        return _build.build((name,), defines), _sass_mix(name, defines)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = dict(zip(jobs, pool.map(build, jobs)))
+    print(f"floor ablated builds: {len(jobs)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for (mode, setting), (log, _) in done.items():
+        for name, text in log.items():
+            print(f"  {name} RP_ABLATE={setting}: "
+                  f"{'; '.join(_ptxas_lines(text))}")
+    return {job: (jobs[job], sass) for job, (_, sass) in done.items()}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _hold_ablated(name, setting, outs, full) -> str:
+    """The checks an ablated build's outputs can take, where its function
+    is known: `cull` alone is the full kernel bit for bit, `eval` alone
+    gives background, `pack` alone leaves the sentinel untouched. Raises
+    on a failure; returns what was checked."""
+    background = {"raster_shade": (-1, 0.0, 0.0),
+                  "raster_select": (-1, -1, 0.0),
+                  "raster_pos": (-1, float("inf"), -1)}[name]
+    if setting == "cull":
+        if not all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(outs, full)):
+            raise AssertionError(f"{name} with cull stripped differs from "
+                                 f"the full kernel")
+        return "equal to the full kernel bit for bit"
+    if setting == "eval":
+        if not all(bool((t == v).all()) for t, v in zip(outs, background)):
+            raise AssertionError(f"{name} with eval stripped is not "
+                                 f"background everywhere")
+        return "background everywhere"
+    if setting == "pack":
+        if not all(bool((t == FLOOR_SENTINEL).all()) for t in outs):
+            raise AssertionError(f"{name} with pack stripped wrote an "
+                                 f"output")
+        return "outputs untouched"
+    return "values not checked"
+
+
 def check_floor(cfg, assets):
     """K5: K1, K2 and K4 alone on inputs precomputed once, at
     benchmarks/floor_probe.py's defaults, with the real chunk masks and
     with every mask bit set (every chunk of the first 64 of a window is
     tested; values not checked, only the time). Each kernel's real-mask
     call is first held against its plain version on its first
-    FLOOR_CHECK images."""
+    FLOOR_CHECK images. Then each ablated build (floor_probe's RP_ABLATE:
+    each phase alone and the skeleton) is launched through the twin on
+    the real masks, into outputs filled with a sentinel, held where its
+    function is known (_hold_ablated), and timed beside the full kernel,
+    with its SASS opcode mix."""
+    from facerecon_tpu_torch.benchmarks import floor_probe as FP
     from facerecon_tpu_torch.data.synthetic import sample_coeffs
     from facerecon_tpu_torch.ops.geometry import device_bfm
+    variants = _floor_builds()
     fcfg = dataclasses.replace(cfg, tile_h=FLOOR_TILE_H,
                                raster_cols=FLOOR_COLS)
     bfm = device_bfm(assets, DEVICE)
@@ -862,6 +950,7 @@ def check_floor(cfg, assets):
     live = int(_popcount(win.cmask).sum())
     added = win.cmask.numel() * 32 - live    # chunks the saturated masks add
     n_ops = _tests_made(win, fcfg.tile_h, fcfg.raster_cols, s)[1]
+    modes = {name: mode for mode, name in FP.MODES.items()}
     for name, (kernel, plain, _, rec_fields) in _raster_kernels().items():
         got = kernel(win, rec, **kw)
         torch.cuda.synchronize()
@@ -872,7 +961,6 @@ def check_floor(cfg, assets):
             _raster_bytes(win, got, rec_fields, fcfg.raster_cols,
                           assets.n_faces), n_ops,
             f"floor {name} (real masks)")
-        del got
         t_real = _time_ms(lambda: kernel(win, rec, **kw), reps=8)
         t_ones = _time_ms(lambda: kernel(ones, rec, **kw), reps=8)
         print(f"floor {name}: batch {FLOOR_BATCH} tile_h {fcfg.tile_h} "
@@ -882,6 +970,25 @@ def check_floor(cfg, assets):
               f"{t_ones:.4f} ms (+{added} chunks): "
               f"{(t_ones - t_real) * 1e6 / added:.3f} ns per chunk added; "
               f"real-mask bound {bound_ms:.4f} ms by {bound_by}")
+        # the ablated builds on the real masks (values checked only by
+        # _hold_ablated: cull, eval and pack alone)
+        mode = modes[name]
+        fkw = dict(size=s, tile_h=fcfg.tile_h, n_cols=fcfg.raster_cols,
+                   n_faces=assets.n_faces)
+        for setting in _floor_settings(mode):
+            defines, sass = variants[(mode, setting)]
+            outs = FP.outputs(mode, FLOOR_BATCH, s, DEVICE,
+                              fill=FLOOR_SENTINEL)
+            FP.launch(mode, win, rec, outs, defines=defines, **fkw)
+            torch.cuda.synchronize()
+            held = _hold_ablated(name, setting, outs, got)
+            t = _time_ms(lambda: FP.launch(mode, win, rec, outs,
+                                           defines=defines, **fkw), reps=8)
+            print(f"floor {name} RP_ABLATE={setting}: {t:.4f} ms against "
+                  f"the full kernel's {t_real:.4f} ms ({t - t_real:+.4f} ms, "
+                  f"{t / t_real:.3f} of it); {held}; SASS opcodes: {sass}")
+            del outs
+        del got
     del bfm, rec, win, ones, sub, sub_rec
     torch.cuda.empty_cache()
 
@@ -892,14 +999,16 @@ def _ptxas_lines(log: str):
             if "registers" in line or "spill" in line]
 
 
-def _sass_mix(name: str) -> str:
+def _sass_mix(name: str, defines=()) -> str:
     """The opcode counts of a built kernel's machine code (cuobjdump
-    -sass of its library), most frequent first."""
+    -sass of its library; the variant with `defines` set), most frequent
+    first."""
     from facerecon_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return "(no cuobjdump beside nvcc)"
-    run = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+    run = subprocess.run([str(tool), "-sass",
+                          str(_build.library_path(name, defines))],
                          capture_output=True, text=True, timeout=120)
     if run.returncode != 0:
         return f"(cuobjdump exited {run.returncode})"
@@ -912,31 +1021,27 @@ def _sass_mix(name: str) -> str:
 
 def check_ctz_walk():
     """K6 against its plain version at the probe's shape, exactly equal
-    for each live-bit count; then the timed probe run (the counters
-    reset just before and read just after). Returns the kernel line's
-    numbers (at WALK_REPORTED live bits; the bound of the per-program
-    walk the probe makes) and the launch counts."""
+    for each live-bit count, and so is its CTZ_UNROLLED build (the
+    probe's looped=0 walk, through the twin
+    benchmarks/ctzloop_probe.walk); then the timed probe run (the
+    counters reset just before and read just after), and the unrolled
+    walk timed after it. Returns the kernel line's numbers (at
+    WALK_REPORTED live bits; the bound of the per-program walk the probe
+    makes) and the launch counts of the __ffs walk's run."""
+    from facerecon_tpu_torch.benchmarks import ctzloop_probe
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import probes
-    rng = np.random.default_rng(0)
-    setup = torch.as_tensor(rng.standard_normal(probes.SETUP_SHAPE),
-                            dtype=torch.float32, device=DEVICE)
-    masks = {}
-    for live in WALK_LIVE:
-        bits = np.zeros(WALK_PROGS, np.int64)
-        for r in range(WALK_PROGS):
-            idx = rng.choice(32, size=live, replace=False)
-            bits[r] = int(np.sum(1 << idx.astype(np.int64)))
-        masks[live] = torch.as_tensor(bits.astype(np.uint32).view(np.int32),
-                                      device=DEVICE)
+    setup, masks = ctzloop_probe.inputs(DEVICE, WALK_PROGS)
     for live, mask in masks.items():
-        got = probes.ctz_walk(mask, setup)
-        torch.cuda.synchronize()
         ref = probes.ctz_walk_reference(mask, setup)
-        if not torch.equal(got, ref):
-            bad = int((got != ref).sum())
-            raise AssertionError(f"ctz_walk differs from the plain version "
-                                 f"at {bad} values ({live} live bits)")
+        for looped in (True, False):
+            got = ctzloop_probe.walk(mask, setup, looped)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise AssertionError(
+                    f"ctz_walk (looped={int(looped)}) differs from the "
+                    f"plain version at {bad} values ({live} live bits)")
 
     # the probe's run: counts from 0
     _build.reset_launches()
@@ -947,6 +1052,16 @@ def check_ctz_walk():
         print(f"ctz_walk: {WALK_PROGS} programs x {live} live bits "
               f"{ms:.4f} ms, {ms * 1e6 / (WALK_PROGS * live):.3f} ns per "
               f"live chunk (equal to the plain version)")
+    for live, mask in masks.items():
+        ms = _time_ms(lambda: ctzloop_probe.walk(mask, setup, False),
+                      reps=20)
+        print(f"ctz_walk CTZ_UNROLLED (looped=0): {WALK_PROGS} programs x "
+              f"{live} live bits {ms:.4f} ms, "
+              f"{ms * 1e6 / (WALK_PROGS * live):.3f} ns per live chunk, "
+              f"{ms / times[live]:.3f} of the __ffs walk's {times[live]:.4f}"
+              f" ms (equal to the plain version)")
+    print(f"ctz_walk CTZ_UNROLLED SASS opcodes: "
+          f"{_sass_mix('ctz_walk', ctzloop_probe.UNROLLED)}")
     mask = masks[WALK_REPORTED]
     plain_ms = _time_ms(lambda: probes.ctz_walk_reference(mask, setup),
                         reps=3)
@@ -2452,8 +2567,8 @@ def main() -> int:
     train_launches = check_training(cfg, assets)
     contract_launches = check_contract(cfg, assets)
     check_evaluate()
-    check_floor(cfg, assets)
-    measured["ctz_walk"], walk_launches = check_ctz_walk()
+    _timed("floor", check_floor, cfg, assets)
+    measured["ctz_walk"], walk_launches = _timed("ctz_walk", check_ctz_walk)
     tmp = tempfile.mkdtemp()
     try:
         driver_launches = {

@@ -41,6 +41,15 @@
 //
 // Layout: mask (n_prog,) i32; setup (8, 8192) f32 row-major (fields 0..5
 // used, chunks 0..31 reachable); out (n_prog, 112) f32.
+//
+// CTZ_UNROLLED builds the probe's other walk (looped=0,
+// benchmarks/ctzloop_probe.py:69-78): each of the 32 bits is tested in
+// turn from the lowest and a clear one skipped, where the default walk
+// (looped=1) jumps to the next set bit with __ffs. The slices, tests and
+// reduction are the same, so it computes the same function exactly.
+// Here it is a loop over the bits: the reference unrolls it because its
+// compiler needs static chunk offsets, and 32 copies of the unrolled
+// 112-pixel body would only grow the code.
 
 #include <cuda_runtime.h>
 
@@ -86,19 +95,42 @@ __device__ __forceinline__ void walk(unsigned int m,
   // slices of 32 triangles; col is this lane's setup column, -1 = done
   int col = -1;
   float f[kFields], g[kFields] = {};
+#ifdef CTZ_UNROLLED
+  int bit = 0;   // the next bit to test
+  // the chunk of the next set bit, each bit tested in turn; -1 at the end
+  auto next_bit = [&]() {
+    for (; bit < 32; ++bit) {
+      if ((m >> bit) & 1u) return bit++;
+    }
+    return -1;
+  };
+  const int first = next_bit();
+  if (first >= 0) {
+    col = first * kChunk + lane;
+    load_slice(setup, col, f);
+  }
+#else
   if (m != 0u) {
     col = (__ffs(m) - 1) * kChunk + lane;
     m &= m - 1u;
     load_slice(setup, col, f);
   }
+#endif
   while (col >= 0) {
     int next = -1;
     if ((col & 96) != 96) {
       next = col + 32;
+#ifdef CTZ_UNROLLED
+    } else {
+      const int k = next_bit();
+      if (k >= 0) next = k * kChunk + lane;
+    }
+#else
     } else if (m != 0u) {
       next = (__ffs(m) - 1) * kChunk + lane;
       m &= m - 1u;
     }
+#endif
     if (next >= 0) load_slice(setup, next, g);   // in flight during the tests
 #pragma unroll
     for (int p = 0; p < kPix; ++p) {

@@ -24,6 +24,32 @@
 // The edge and depth forms keep the reference's operation order with
 // explicit round-to-nearest intrinsics (and the build passes -fmad=false),
 // so no multiply-add contraction moves a knife-edge pixel.
+//
+// Ablation switches (the port's form of the reference's RP_ABLATE hook,
+// facerecon_tpu/ops/rasterize_pallas.py:171-175): a variant build
+// (ops/_build.py `defines`) strips one phase of the skeleton so its share
+// of the time can be measured on this code. Only the probe twin
+// benchmarks/floor_probe.py and chip_smoke.py build them; with none set
+// the source compiles as it always has. Their outputs are not the
+// function (except RP_ABLATE_CULL's, which are). Each stripped phase
+// leaves a sink the compiler cannot see through, so it does not delete
+// the work that is meant to stay:
+//   RP_ABLATE_DMA    the global loads of each chunk segment's setup rows:
+//                    the walk's first segment is loaded once, and each
+//                    later fetch only tells the compiler (an empty asm)
+//                    that the rows changed, so the cull and tests run on
+//                    real rows (the first segment's, in every chunk);
+//   RP_ABLATE_EVAL   the z-tests of the staged triangles, in every chunk
+//                    of the walk: each pixel stays background; a branch
+//                    on a runtime value that never holds (rows < 0)
+//                    reads the slots, so the staging stays;
+//   RP_ABLATE_CULL   cull_live and its ballot: every fetched triangle is
+//                    staged and tested (the result is the full kernel's,
+//                    bit for bit, as the cull is exact);
+//   RP_ABLATE_MERGE  the warps' merge: warp 0 alone writes its winners to
+//                    shared memory, and each pixel takes warp 0's;
+//   RP_ABLATE_SEL and RP_ABLATE_PACK strip the epilogue's record load and
+//                    its arithmetic and stores, in each kernel's source.
 
 #pragma once
 
@@ -169,8 +195,19 @@ __device__ __forceinline__ TileWinners tile_ztest(
     }
   }
   float f[kStaged];
+#ifdef RP_ABLATE_DMA
+  bool loaded = false;
+#endif
   auto fetch = [&](int k) {
     if (k < 0) return;
+#ifdef RP_ABLATE_DMA
+    if (loaded) {
+#pragma unroll
+      for (int i = 0; i < kStaged; ++i) asm volatile("" : "+f"(f[i]));
+      return;
+    }
+    loaded = true;
+#endif
     const size_t r0 = static_cast<size_t>(lo + k) * kChunk + part;
 #pragma unroll
     for (int i = 0; i < kStaged; ++i) {
@@ -183,8 +220,13 @@ __device__ __forceinline__ TileWinners tile_ztest(
   while (k >= 0) {
     // stage: this lane's triangle, if it may cover a pixel of the group
     const int my_row = (lo + k) * kChunk + part;
+#ifdef RP_ABLATE_CULL
+    const bool live = true;
+    const unsigned int ballot = 0xffffffffu;
+#else
     const bool live = cull_live(f, gx0, gx1, gy0, gy1);
     const unsigned int ballot = __ballot_sync(0xffffffffu, live);
+#endif
     if (live) {
       const int slot = __popc(ballot & ((1u << lane) - 1u));
       seg[slot].w0 = make_float4(f[0], f[1], f[2], f[3]);
@@ -196,6 +238,12 @@ __device__ __forceinline__ TileWinners tile_ztest(
     k = walk.next();
     fetch(k);   // in flight while the tests below run
     const int n_live = __popc(ballot);
+#ifdef RP_ABLATE_EVAL
+    if (rows < 0 && n_live > 0) {
+      w.z[0][0] = seg[n_live - 1].w0.x;
+      w.row[0][0] = seg_row[n_live - 1];
+    }
+#else
     for (int i = 0; i < n_live; ++i) {
       const float4 a = seg[i].w0, b = seg[i].w1, d = seg[i].w2;
       const int rr = seg_row[i];
@@ -232,6 +280,7 @@ __device__ __forceinline__ TileWinners tile_ztest(
         }
       }
     }
+#endif
     __syncwarp();   // the next chunk rewrites the slots
   }
   return w;
@@ -327,7 +376,11 @@ __device__ __forceinline__ void tile_raster(
                                        gy0, gy1);
 
       // merge the warps' winners per group pixel
+#ifdef RP_ABLATE_MERGE
+      if (warp == 0 && lane < gc * gr) {
+#else
       if (lane < gc * gr) {
+#endif
 #pragma unroll
         for (int r = 0; r < kTileR; ++r) {
 #pragma unroll
@@ -343,6 +396,7 @@ __device__ __forceinline__ void tile_raster(
       __syncthreads();
       if (tid < gw * gh) {
         Winner win{s_z[0][tid], s_id[0][tid], s_row[0][tid]};
+#ifndef RP_ABLATE_MERGE
 #pragma unroll
         for (int v = 1; v < kTileWarps; ++v) {
           if (beats(s_z[v][tid], s_id[v][tid], s_row[v][tid], win.z, win.id,
@@ -350,6 +404,7 @@ __device__ __forceinline__ void tile_raster(
             win = Winner{s_z[v][tid], s_id[v][tid], s_row[v][tid]};
           }
         }
+#endif
         const int xo = gx * kTileC + tid % gw;   // column in the tile
         const int yo = gy * kTileR + tid / gw;   // row in the band
         const int x = x_tile + xo;

@@ -23,6 +23,11 @@
 // Layout (all row-major, contiguous): setup, blo/bn, cmask as in
 // raster_common.cuh. Outputs: tri_id (B, H, W) i32 and row (B, H, W) i32
 // (-1 = background), zbuf (B, H, W) f32 (+inf = background).
+//
+// Ablation switches (raster_common.cuh): this epilogue loads no record,
+// so RP_ABLATE_SEL does not apply (the reference's pos mode has no
+// select); RP_ABLATE_PACK drops the stores: the winner's id, depth and
+// row fold into one word, stored only when n_faces < 0 (never).
 
 #include "raster_common.cuh"
 
@@ -41,9 +46,16 @@ raster_pos_kernel(const float* __restrict__ setup,
       setup, blo, bn, cmask, height, width, tile_h, n_cols, col_w, n_bands,
       rows, [&](int, int, int, size_t pix, const Winner& win) {
         const int id = winner_id(win, n_faces);
+#ifdef RP_ABLATE_PACK
+        const unsigned int sink = static_cast<unsigned int>(id) ^
+                                  __float_as_uint(win.z) ^
+                                  static_cast<unsigned int>(win.row);
+        if (n_faces < 0) tri_id[pix] = static_cast<int>(sink);
+#else
         tri_id[pix] = id;
         zbuf[pix] = id >= 0 ? win.z : __int_as_float(0x7f800000);
         row_out[pix] = id >= 0 ? win.row : -1;
+#endif
       });
 }
 

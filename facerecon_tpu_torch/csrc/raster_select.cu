@@ -29,6 +29,12 @@
 // Outputs: tri_id (B, H, W) i32 and row (B, H, W) i32 (-1 = background),
 // sel (B, 20, H, W) f32: fields 0..19 of the winner's record, zero on
 // background.
+//
+// Ablation switches (raster_common.cuh) of this epilogue: RP_ABLATE_SEL
+// makes the winner's 20 record fields from its row with no load;
+// RP_ABLATE_PACK drops every store: the winner's id, row and record
+// fields fold into one word, stored only when n_faces < 0 (never), so
+// the loads stay.
 
 #include "raster_common.cuh"
 
@@ -51,21 +57,45 @@ raster_select_kernel(const float* __restrict__ setup,
       setup, blo, bn, cmask, height, width, tile_h, n_cols, col_w, n_bands,
       rows, [&](int b, int x, int y, size_t pix, const Winner& win) {
         const int id = winner_id(win, n_faces);
+#ifdef RP_ABLATE_PACK
+        unsigned int sink = static_cast<unsigned int>(id) ^
+                            static_cast<unsigned int>(win.row);
+        if (id >= 0) {
+#pragma unroll
+          for (int f = 0; f < kSelFields; ++f) {
+#ifdef RP_ABLATE_SEL
+            sink ^= static_cast<unsigned int>(win.row + f);
+#else
+            sink ^= __float_as_uint(rec[(static_cast<size_t>(b) * kRecFields +
+                                         f) * rows + win.row]);
+#endif
+          }
+        }
+        if (n_faces < 0) tri_id[pix] = static_cast<int>(sink);
+#else
         tri_id[pix] = id;
         row_out[pix] = id >= 0 ? win.row : -1;
         float* o = sel + (static_cast<size_t>(b) * kSelFields * height + y) *
                              width + x;
         if (id >= 0) {
+#ifdef RP_ABLATE_SEL
+#pragma unroll
+          for (int f = 0; f < kSelFields; ++f) {
+            o[f * plane] = __int_as_float(win.row + f);
+          }
+#else
           const float* r = rec + static_cast<size_t>(b) * kRecFields * rows +
                            win.row;
 #pragma unroll
           for (int f = 0; f < kSelFields; ++f) {
             o[f * plane] = r[static_cast<size_t>(f) * rows];
           }
+#endif
         } else {
 #pragma unroll
           for (int f = 0; f < kSelFields; ++f) o[f * plane] = 0.0f;
         }
+#endif
       });
 }
 

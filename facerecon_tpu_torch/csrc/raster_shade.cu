@@ -30,6 +30,12 @@
 //          9..14 affine forms, 15..16 anchor
 // Outputs: tri_id (B, H, W) i32 (-1 = background), color and bary
 // (B, H, W, 3) f32 (zero on background).
+//
+// Ablation switches (raster_common.cuh) of this epilogue: RP_ABLATE_SEL
+// makes the winner's 17 record fields from its row with no load;
+// RP_ABLATE_PACK drops the barycentric and shading arithmetic and every
+// store: the winner's id and record fields fold into one word, stored
+// only when n_faces < 0 (never), so the loads stay.
 
 #include "raster_common.cuh"
 
@@ -49,13 +55,27 @@ raster_shade_kernel(const float* __restrict__ setup,
       setup, blo, bn, cmask, height, width, tile_h, n_cols, col_w, n_bands,
       rows, [&](int b, int x, int y, size_t pix, const Winner& win) {
         const int fid = winner_id(win, n_faces);
+#ifdef RP_ABLATE_PACK
+        unsigned int sink = static_cast<unsigned int>(fid);
+#else
         tri_id[pix] = fid;
         float rgb[3] = {0.0f, 0.0f, 0.0f};
         float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f;
+#endif
         if (fid >= 0) {
+#ifdef RP_ABLATE_SEL
+          auto field = [&](int f) { return __int_as_float(win.row + f); };
+#else
           const float* r = rec + static_cast<size_t>(b) * kRecFields * rows +
                            win.row;
           auto field = [&](int f) { return r[static_cast<size_t>(f) * rows]; };
+#endif
+#ifdef RP_ABLATE_PACK
+#pragma unroll
+          for (int f = 0; f < 17; ++f) sink ^= __float_as_uint(field(f));
+        }
+        if (n_faces < 0) tri_id[pix] = static_cast<int>(sink);
+#else
           const float fx = static_cast<float>(x) + 0.5f;
           const float fy = static_cast<float>(y) + 0.5f;
           const float qx = __fsub_rn(fx, field(15));
@@ -73,6 +93,7 @@ raster_shade_kernel(const float* __restrict__ setup,
         bary[pix * 3 + 0] = w0;
         bary[pix * 3 + 1] = w1;
         bary[pix * 3 + 2] = w2;
+#endif
       });
 }
 

@@ -8,9 +8,17 @@ header in `csrc/` and the flags, so a checkout builds what it needs on
 its first call and reuses it afterwards, and an edited header rebuilds
 every kernel. A failed build raises: there is no fallback.
 
+A variant build compiles the same source with macros defined
+(`defines`, passed to nvcc as -D<name>): the ablated raster kernels and
+the per-bit walk of K6, which only the probe twins in `benchmarks/` and
+chip_smoke.py ask for. The macros enter the hash, so a variant is a
+library of its own, built at its first use; without them every name and
+build is the default one.
+
 `launch` calls a kernel's C entry on the current stream and adds one to
-its count in `LAUNCHES`; the wrappers launch through it and nowhere
-else, so a run can show which kernels its path went through. `on_card`
+its count in `LAUNCHES` (a variant's under its kernel's name); the
+wrappers launch through it and nowhere else, so a run can show which
+kernels its path went through. `on_card`
 and `check_tensors` are the wrappers' shared input checks.
 """
 
@@ -19,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,7 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -65,27 +74,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def macros(defines=()) -> tuple[str, ...]:
+    """A variant's macro names, sorted and without repeats; raises on
+    anything that is not a macro name."""
+    names = tuple(sorted(set(defines)))
+    for d in names:
+        if not re.fullmatch(r"[A-Z_][A-Z0-9_]*", d):
+            raise ValueError(f"not a macro name: {d!r}")
+    return names
+
+
+def library_path(name: str, defines=()) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    defines = macros(defines)
+    if defines:
+        digest.update(" ".join(f"-D{d}" for d in defines).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> dict[str, str]:
-    """Compile every named kernel that has no current library: one nvcc
-    per source, all started together. Returns each new build's compiler
-    log (register and shared-memory use from ptxas). Raises if any
-    build fails."""
+def build(names=KERNELS, defines=()) -> dict[str, str]:
+    """Compile every named kernel that has no current library, with the
+    macros `defines` set: one nvcc per source, all started together.
+    Returns each new build's compiler log (register and shared-memory use
+    from ptxas). Raises if any build fails."""
+    defines = macros(defines)
     procs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -103,14 +127,16 @@ def build(names=KERNELS) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The kernel's shared library (the variant with `defines` set),
+    built first if needed."""
+    key = (name, macros(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            _libs[name] = lib
+            build((name,), key[1])
+            lib = ctypes.CDLL(str(library_path(*key)))
+            _libs[key] = lib
         return lib
 
 
@@ -135,11 +161,12 @@ def check_tensors(dev, want) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch(name: str, dev: torch.device, ptrs, ints) -> None:
-    """Launch kernel `name` (built at first use) on the current stream of
-    `dev`: its C entry takes the pointers, then the ints, then the
-    stream, and returns the launch's CUDA error code."""
-    fn = getattr(load(name), name)
+def launch(name: str, dev: torch.device, ptrs, ints, defines=()) -> None:
+    """Launch kernel `name` (built at first use; the variant with
+    `defines` set) on the current stream of `dev`: its C entry takes the
+    pointers, then the ints, then the stream, and returns the launch's
+    CUDA error code."""
+    fn = getattr(load(name, defines), name)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -847,3 +847,84 @@ def test_probe_scatter_min_on_card_equals_cpu(card):
     ref = np.full(hw, SCA.INT32_MAX, np.int64)
     np.minimum.at(ref, idx[0].cpu().numpy(), zb[0].cpu().numpy())
     np.testing.assert_array_equal(got[0][:hw].cpu().numpy(), ref)
+
+
+# --- the variant builds: K6's per-bit walk and K5's ablation switches ---
+
+@pytest.mark.parametrize("live", [4, 8, 16, 32])
+def test_ctz_unrolled_build_matches_plain_version(card, live):
+    """The CTZ_UNROLLED build (the probe's looped=0 walk, through the twin
+    benchmarks/ctzloop_probe) bit for bit equal to K6's plain version at
+    the probe's shape, as the __ffs walk is; its launch counts under
+    ctz_walk."""
+    from facerecon_tpu_torch.benchmarks import ctzloop_probe as CTZ
+    from facerecon_tpu_torch.ops import probes
+    setup, masks = CTZ.inputs(card)
+    mask = masks[live]
+    before = dict(_build.LAUNCHES)
+    got = CTZ.walk(mask, setup, looped=False)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {"raster_shade": 0, "raster_select": 0,
+                        "select_grad": 0, "raster_pos": 0, "ctz_walk": 1}
+    assert torch.equal(got, probes.ctz_walk_reference(mask, setup))
+
+
+def _floor_case(card, mode, setting, fill=-12345):
+    """An ablated build (benchmarks/floor_probe, RP_ABLATE `setting`) of
+    the mode's kernel and the full one on tiny_config(n_vertices=6000)'s
+    windows, each launched by the twin: (ablated outputs, filled with
+    `fill` first, full outputs, launches the ablated call made)."""
+    from facerecon_tpu_torch.benchmarks import floor_probe as FP
+    _, win, rec, kw = _kernel_inputs(card, "raster_rows")
+    fkw = dict(size=kw["height"], tile_h=kw["tile_h"], n_cols=kw["n_cols"],
+               n_faces=kw["n_faces"])
+    full = FP.call(mode, win, rec, **fkw)
+    outs = FP.outputs(mode, win.setup.shape[0], kw["height"], card, fill)
+    before = dict(_build.LAUNCHES)
+    FP.launch(mode, win, rec, outs, defines=FP.ablation(setting, mode),
+              **fkw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert float((full[0] >= 0).float().mean()) > 0.1
+    return outs, full, launched
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("mode", ["shade", "select", "pos"])
+def test_cull_stripped_equals_full_kernel(card, mode):
+    """With the cull stripped every fetched triangle is tested; the cull
+    is exact, so K1, K2 and K4 give the full kernel's outputs bit for
+    bit. The variant's one launch counts under its kernel's name, and no
+    key is added."""
+    outs, full, launched = _floor_case(card, mode, "cull")
+    for a, b in zip(outs, full):
+        assert torch.equal(_bits(a), _bits(b))
+    name = {"shade": "raster_shade", "select": "raster_select",
+            "pos": "raster_pos"}[mode]
+    assert set(launched) == set(_build.KERNELS)
+    assert launched == {k: int(k == name) for k in _build.KERNELS}
+
+
+@pytest.mark.parametrize("mode", ["shade", "select", "pos"])
+def test_eval_stripped_gives_background(card, mode):
+    """With the z-tests stripped no pixel is covered: tri_id -1 and every
+    other output what the kernel writes on background (K1 zeros; K2 row
+    -1 and zeros; K4 +inf depth and row -1)."""
+    outs, _, _ = _floor_case(card, mode, "eval")
+    background = {"shade": (-1, 0.0, 0.0), "select": (-1, -1, 0.0),
+                  "pos": (-1, float("inf"), -1)}[mode]
+    for t, v in zip(outs, background):
+        assert bool((t == v).all())
+
+
+@pytest.mark.parametrize("mode", ["shade", "select", "pos"])
+def test_pack_stripped_leaves_outputs_untouched(card, mode):
+    """With the epilogue's arithmetic and stores stripped, outputs filled
+    with a sentinel keep it."""
+    outs, _, _ = _floor_case(card, mode, "pack")
+    for t in outs:
+        assert bool((t == -12345).all())

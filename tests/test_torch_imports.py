@@ -79,6 +79,14 @@ def test_probe_slice_modules_are_checked(module):
     assert ROOT / "facerecon_tpu_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", ["benchmarks/floor_probe.py",
+                                    "benchmarks/ctzloop_probe.py"])
+def test_ablation_slice_modules_are_checked(module):
+    """The K5 and K6 probes' twins (the thirteenth slice) are among the
+    sources checked here."""
+    assert ROOT / "facerecon_tpu_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
