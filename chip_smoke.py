@@ -18,12 +18,17 @@ Phases (any failed check raises, and the script exits non-zero):
      plus a near-camera image (rows of more than 128 px over several
      bands); K4 (raster_pos) on both row orders as K1 and K2 (tri_id,
      depth and winner row exactly equal); K1, K2 and K4 on a wide band
-     (tile_h 8 x one 224-px column), each held and timed there. Times each
-     kernel and its plain version; the bounds of K1, K2 and K4 count the
-     f32 ops of the tests they make after their shared per-group cull (7
-     adds a test, plus the products each pixel column and row of a group
-     shares) and the bytes they must read (the walked setup chunks, the
-     winners' record sectors).
+     (tile_h 8 x one 224-px column), each held and timed there; then
+     the band sweep: K1, K2 and K4 held at full width on bands
+     of 1, 2, 4, 8, 64 and 136 rows, on a shuffled order, on saturated
+     masks and with cull_backfaces. Times each kernel and its plain
+     version; the ops bounds of K1, K2 and K4 count what the inputs need,
+     the same for any design (the pixel centers in each triangle's
+     bounding box, 7 adds a test, plus the products each of its pixel
+     columns and rows shares), printed beside the earlier group-based
+     count and the tests the kernels issue
+     (ops/rasterize.tests_issued); their bytes bounds what they must read
+     (the walked setup chunks, the winners' record sectors).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch of a random-weight model (finite outputs,
      coverage, one K1 launch per call, agreement with the same float32
@@ -201,10 +206,11 @@ H100_F32_S = 132 * 128 * 1.98e9  # f32 ops a second: one unfused op per
                          # counts a fused multiply-add as 2 ops
 TEST_ADDS = 7        # f32 adds per pixel x triangle test (2 each for the
                      # edge forms e0, e1 and the depth, 1 for e0 + e1)
-AXIS_OPS = 4         # f32 ops per triangle for each distinct pixel column
-                     # (row) of a group: qx = px - x0, then the three
-                     # forms' a * qx, shared by the column's pixels;
-                     # comparisons not counted
+AXIS_OPS = 4         # f32 ops per triangle for each pixel column (row) of
+                     # its bounding box: qx = px - x0, then the three
+                     # forms' a * qx, which the column's pixels share and
+                     # no design can skip (-fmad=false keeps each product
+                     # an op); comparisons not counted
 WALK_FLOPS = 7       # f32 ops per ctz_walk test (3 x (mul + add), 1 add)
 PARITY_SEEDS = (7, 8)    # contract parity (tests/test_tpu_parity.py)
 PARITY_BATCH = 4
@@ -221,6 +227,11 @@ FLOOR_SKELETON = "sel,eval,dma,pack"   # floor_probe.py:6's skeleton
 FLOOR_SENTINEL = -12345   # fills the outputs of the ablated launches
 WIDE_TILE_H = 8      # wide band: tile_h 8 x one 224-px column
 WIDE_BATCH = 4
+SWEEP_TILE_H = (1, 2, 3, 4, 5, 8, 64, 136)   # band heights of the sweep
+SWEEP_BATCH = 2
+RASTER_COUNT_IMAGES = 8  # raster_bench's tests issued: its face order
+                         # walks every chunk past the masks, 16 pixel
+                         # groups a tile, so count the first 8 images
 WALK_PROGS = 2048    # K6: benchmarks/ctzloop_probe.py's shape
 WALK_REPORTED = 8    # live bits of the K6 line in the kernels JSON
 FIT_BATCH = 8        # fit driver: synthetic targets
@@ -242,6 +253,7 @@ DP_BATCH = 32            # world-size-1 NCCL train step
 RENDER_REPS = 1          # render_bench: reps and inner lowered from the
 RENDER_INNER = 2         # reference's 3 and 8 to keep the script short
 RENDER_RUNS = ((224, False), (224, True), (512, True))   # (--size, --bwd)
+RENDER_HOLD_IMAGES = 8   # K1 and K4 held at 512 px on the first 8 images
 PROBE_STEM_BF16 = 2.0 ** -6   # the stems in bf16: each output rounded twice
 PROBE_STEM_F32 = 1e-5         # (accumulator, then after the bias), x max
 PROBE_GATHER = 1e-6           # gather forms, card against CPU, x max |ref|
@@ -290,19 +302,53 @@ def _live_pairs(win, cfg) -> int:
     return masked + beyond * 128 * col_px * cfg.raster_cols
 
 
-def _tests_made(win, tile_h: int, n_cols: int, width: int):
-    """(tests, f32 ops, tests issued) of K1, K2 and K4 on these windows.
-    The tests: for
-    each pixel group of each column tile (ops/rasterize.pixel_group), the
-    triangles of the chunks its walk visits (the column's masked chunks
-    of the first 64, then every chunk beyond) that the group's cull keeps
-    (ops/rasterize.cull_keeps, the kernels' cull in float32), times the
-    group's pixels inside the tile. The ops those tests need at least:
-    for each kept triangle, TEST_ADDS a pixel and AXIS_OPS for each of
-    the group's pixel columns and rows inside the tile (the kernels'
-    2 x 2 micro-tiles share less and issue 11 a test). The tests issued:
-    every lane of the group's warp tests its micro-tile, 128 pixels a
-    kept triangle, also where the group reaches past the tile."""
+def _needed_tests(win, height: int, width: int):
+    """(tests, f32 ops) that these windows' triangles need, the same for
+    any design: for each live setup row (a dead or slack row has wc0 =
+    -3e38), the pixel centers inside its screen bounding box, clipped to
+    the image, times TEST_ADDS, plus AXIS_OPS for each pixel column and
+    row of that box. The box: vertex 0 is the anchor (fields 9, 10); the
+    other two come back from the affine forms in float64 (the forms are
+    the inverse of [[u1, u2], [v1, v2]] scaled: det = wa0 wb1 - wb0 wa1 =
+    1 / area, u2 = -wb1 area, v2 = wa1 area, u1 = u2 - wb0 area, v1 = v2
+    + wa0 area)."""
+    f = win.setup[:, :11].to(torch.float64)
+    wa0, wb0, wc0, wa1, wb1 = f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4]
+    det = wa0 * wb1 - wb0 * wa1
+    live = (wc0 > -1e38) & (det != 0)
+    area = 1.0 / torch.where(live, det, 1.0)
+    u2, v2 = -wb1 * area, wa1 * area
+    u1, v1 = u2 - wb0 * area, v2 + wa0 * area
+    zero = torch.zeros_like(u1)
+    xs = f[:, 9][..., None] + torch.stack([zero, u1, u2], dim=-1)
+    ys = f[:, 10][..., None] + torch.stack([zero, v1, v2], dim=-1)
+
+    def centers(lo, hi, size):    # pixel centers p + 0.5 in [lo, hi]
+        first = torch.clamp(torch.ceil(lo - 0.5), min=0)
+        last = torch.clamp(torch.floor(hi - 0.5), max=size - 1)
+        return torch.clamp(last - first + 1, min=0).nan_to_num(0.0)
+    nx = centers(xs.amin(-1), xs.amax(-1), width)
+    ny = centers(ys.amin(-1), ys.amax(-1), height)
+    nx, ny = nx * live, ny * live
+    some = (nx * ny) > 0
+    tests = int((nx * ny).sum())
+    ops = TEST_ADDS * tests + AXIS_OPS * int(((nx + ny) * some).sum())
+    return tests, ops
+
+
+def _group_tests(win, tile_h: int, n_cols: int, width: int):
+    """(tests, f32 ops, tests issued) by the earlier group-based count,
+    printed beside the count of _needed_tests so that rows compare.
+    The tests: for each pixel group of each column tile
+    (ops/rasterize.pixel_group), the triangles of the chunks its walk
+    visits (the column's masked chunks of the first 64, then every chunk
+    beyond) that the group's cull keeps (ops/rasterize.cull_keeps, the
+    kernels' cull in float32, on the group's whole rectangle), times the
+    group's pixels inside the tile. The ops: for each kept triangle,
+    TEST_ADDS a pixel and AXIS_OPS for each of the group's pixel columns
+    and rows inside the tile. The tests issued by the earlier design:
+    every lane of the group's warp tested its micro-tile, 128 pixels a
+    kept triangle."""
     from facerecon_tpu_torch.ops import rasterize as R
     col_w = R.col_width(width, n_cols)
     gw, gh = R.pixel_group(tile_h, col_w)
@@ -356,6 +402,38 @@ def _tests_made(win, tile_h: int, n_cols: int, width: int):
     return tests, ops, issued
 
 
+def _tests_made(win, tile_h: int, n_cols: int, width: int,
+                issued_images: int = None) -> dict:
+    """The tests of K1, K2 and K4 on these windows (square images):
+    `needed`/`needed_ops` what the inputs need (_needed_tests, the ops
+    bound's count), `issued` what the kernels issue
+    (ops/rasterize.tests_issued: `mask` the coverage tests of the
+    micro-tile masks, `list` the z-tests of the lanes' lists; on the
+    first issued_images images where given, `issued_images` then), and
+    the earlier group-based count (_group_tests: `group`,
+    `group_ops`, `group_issued`)."""
+    from facerecon_tpu_torch.ops import rasterize as R
+    needed, needed_ops = _needed_tests(win, width, width)
+    mask, lists = R.tests_issued(
+        win if issued_images is None else _head(win, issued_images),
+        height=width, width=width, tile_h=tile_h, n_cols=n_cols)
+    group, group_ops, group_issued = _group_tests(win, tile_h, n_cols,
+                                                  width)
+    return dict(needed=needed, needed_ops=needed_ops, issued=mask + lists,
+                mask=mask, list=lists, group=group, group_ops=group_ops,
+                group_issued=group_issued, issued_images=issued_images)
+
+
+def _tests_line(what: str, t: dict) -> str:
+    first = t["issued_images"]
+    on = f" on the first {first} images" if first else ""
+    return (f"{what} tests needed {t['needed']} ({t['needed_ops']} f32 "
+            f"ops), issued{on} {t['issued']} (mask {t['mask']} + lists "
+            f"{t['list']}); the earlier group-based count: made "
+            f"{t['group']} ({t['group_ops']} f32 ops), issued by the old "
+            f"design {t['group_issued']}")
+
+
 def _inputs(cfg, bfm, coeff, order: str):
     """Records and windows for the kernel, in the asset's raster row
     order or in a shuffled face order."""
@@ -381,12 +459,19 @@ def _inputs(cfg, bfm, coeff, order: str):
     return rec, win
 
 
-def _bound(n_bytes: int, n_ops: int, name: str):
-    """(bound_ms, bound_by) for moving n_bytes and doing n_ops f32 ops."""
+def _bound(n_bytes: int, n_ops: int, name: str, old_ops: int = None):
+    """(bound_ms, bound_by) for moving n_bytes and doing n_ops f32 ops.
+    old_ops, where given (the rasterizers' earlier group-based count),
+    is printed beside with the bound it gave."""
     t_bytes = n_bytes / H100_BYTES_S * 1e3
     t_ops = n_ops / H100_F32_S * 1e3
+    old = ""
+    if old_ops is not None:
+        t_old = old_ops / H100_F32_S * 1e3
+        old = (f" (the earlier group-based count: {old_ops} f32 ops -> "
+               f"{t_old:.4f} ms, bound {max(t_bytes, t_old):.4f} ms)")
     print(f"{name} bound inputs: {n_bytes} bytes -> {t_bytes:.4f} ms; "
-          f"{n_ops} f32 ops -> {t_ops:.4f} ms")
+          f"{n_ops} f32 ops -> {t_ops:.4f} ms{old}")
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -522,14 +607,13 @@ def _check_raster(name, main_batch, cfg, assets, rng):
               f"kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
               f"max|err|={err:.3g} (tri_id exact)")
         if order == "raster_rows":
-            made, n_ops, _ = _tests_made(win, cfg.tile_h, cfg.raster_cols,
-                                         s)
-            print(f"{name}[{order}] tests made {made} of the mask walk's "
-                  f"{pairs} ({made / pairs:.4f}), {n_ops / made:.3f} f32 "
-                  f"ops a test")
+            t = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+            print(_tests_line(f"{name}[{order}]", t) + f"; the mask walk's "
+                  f"pairs {pairs}")
             bound_ms, bound_by = _bound(
                 _raster_bytes(win, got, rec_fields, cfg.raster_cols,
-                              assets.n_faces), n_ops, name)
+                              assets.n_faces), t["needed_ops"], name,
+                t["group_ops"])
             result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
         main[order] = (win, rec, got)
@@ -669,9 +753,67 @@ def check_wide_band(cfg, assets):
         print(f"wide band {name}: batch {WIDE_BATCH} tile_h {WIDE_TILE_H} x "
               f"one {s}-px column equal to the plain version (max|err| "
               f"{err:.3g}), {ms:.4f} ms")
-    print(f"wide band: {_tests_made(win, WIDE_TILE_H, 1, s)[0]} tests made, "
-          f"mask walk {_live_pairs(win, wcfg)}")
+    print(_tests_line("wide band:", _tests_made(win, WIDE_TILE_H, 1, s))
+          + f"; mask walk {_live_pairs(win, wcfg)}")
     del bfm, rec, win
+    torch.cuda.empty_cache()
+
+
+def check_band_sweep(cfg, assets):
+    """K1, K2 and K4 at full width on every band height the z-test must
+    take (SWEEP_TILE_H: a 1-row band, whose micro-tiles' second rows lie
+    past the tile, up to 136 rows, past the image; the config's columns
+    at 1 and 4 rows, the floor's at 2, one column from 8; the odd
+    heights 3 x 32-px and 5 x 16-px columns, whose pixel groups of 2 and
+    3 micro-rows end in a micro-row with one pixel row in the tile), in
+    the asset's row order at batch SWEEP_BATCH; then on
+    a shuffled face order (tile_h 2 and 8), on saturated masks (every
+    chunk bit set, tile_h 2) and with cull_backfaces on an image turned
+    2.5 rad (tile_h 4), each at batch 1 or 2. Each held against its plain
+    version (tri_id exact; K1 color/bary within 1e-6, K2 and K4 exact)."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.geometry import device_bfm
+    bfm = device_bfm(assets, DEVICE)
+    s = cfg.image_size
+    kernels = _raster_kernels()
+
+    def hold(rec, win, tile_h, n_cols, where):
+        kw = dict(height=s, width=s, tile_h=tile_h, n_cols=n_cols,
+                  n_faces=assets.n_faces)
+        for name, (kernel, plain, _, _) in kernels.items():
+            got = kernel(win, rec, **kw)
+            torch.cuda.synchronize()
+            _hold(name, got, plain(win, rec, **kw), where)
+        print(f"band sweep: K1, K2, K4 equal to their plain versions "
+              f"({where})")
+    cols = {1: cfg.raster_cols, 2: FLOOR_COLS, 3: 7, 4: cfg.raster_cols,
+            5: 14}
+    cases = [(t, cols.get(t, 1), "raster_rows", SWEEP_BATCH, "")
+             for t in SWEEP_TILE_H]
+    cases += [(2, FLOOR_COLS, "shuffled", 1, ""), (8, 1, "shuffled", 1, ""),
+              (2, FLOOR_COLS, "raster_rows", 2, "saturated"),
+              (4, cfg.raster_cols, "raster_rows", 2, "cull")]
+    for tile_h, n_cols, order, batch, how in cases:
+        bcfg = dataclasses.replace(cfg, tile_h=tile_h, raster_cols=n_cols)
+        coeff = sample_coeffs(np.random.default_rng(9), bcfg, batch)
+        if how == "cull":
+            coeff[-1, bcfg.coeff_split[2] + 1] = 2.5   # turned: back faces
+        rec, win = _inputs(bcfg, bfm, coeff, order)
+        if how == "saturated":
+            win = win._replace(cmask=torch.full_like(win.cmask, -1))
+        if how == "cull":
+            from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry
+            from facerecon_tpu_torch.utils.coeffs import split_coeff
+            geom = coeffs_to_geometry(split_coeff(torch.as_tensor(
+                coeff, device=DEVICE), bcfg), bfm, bcfg)
+            win = R.band_windows(geom.verts_ndc, bfm.raster_rows,
+                                 bfm.raster_row_id, s, s, tile_h, n_cols,
+                                 cull_backfaces=True)
+        hold(rec, win, tile_h, n_cols, f"{order}, tile_h {tile_h} x "
+             f"{n_cols} columns, batch {batch}{', ' + how if how else ''}")
+        del rec, win
+    del bfm
     torch.cuda.empty_cache()
 
 
@@ -931,7 +1073,10 @@ def check_floor(cfg, assets):
     each phase alone and the skeleton) is launched through the twin on
     the real masks, into outputs filled with a sentinel, held where its
     function is known (_hold_ablated), and timed beside the full kernel,
-    with its SASS opcode mix."""
+    with its SASS opcode mix. It prints the tests the inputs need, the
+    tests the kernels issue and the earlier group-based count
+    (_tests_made), and the full kernels' opcode mixes beside the
+    ablated builds'."""
     from facerecon_tpu_torch.benchmarks import floor_probe as FP
     from facerecon_tpu_torch.data.synthetic import sample_coeffs
     from facerecon_tpu_torch.ops.geometry import device_bfm
@@ -949,7 +1094,8 @@ def check_floor(cfg, assets):
               n_faces=assets.n_faces)
     live = int(_popcount(win.cmask).sum())
     added = win.cmask.numel() * 32 - live    # chunks the saturated masks add
-    n_ops = _tests_made(win, fcfg.tile_h, fcfg.raster_cols, s)[1]
+    counts = _tests_made(win, fcfg.tile_h, fcfg.raster_cols, s)
+    print(_tests_line("floor", counts))
     modes = {name: mode for mode, name in FP.MODES.items()}
     for name, (kernel, plain, _, rec_fields) in _raster_kernels().items():
         got = kernel(win, rec, **kw)
@@ -959,8 +1105,8 @@ def check_floor(cfg, assets):
                     f"floor, first {FLOOR_CHECK} images")
         bound_ms, bound_by = _bound(
             _raster_bytes(win, got, rec_fields, fcfg.raster_cols,
-                          assets.n_faces), n_ops,
-            f"floor {name} (real masks)")
+                          assets.n_faces), counts["needed_ops"],
+            f"floor {name} (real masks)", counts["group_ops"])
         t_real = _time_ms(lambda: kernel(win, rec, **kw), reps=8)
         t_ones = _time_ms(lambda: kernel(ones, rec, **kw), reps=8)
         print(f"floor {name}: batch {FLOOR_BATCH} tile_h {fcfg.tile_h} "
@@ -969,7 +1115,8 @@ def check_floor(cfg, assets):
               f"the plain version, max|err| {err:.3g}), saturated "
               f"{t_ones:.4f} ms (+{added} chunks): "
               f"{(t_ones - t_real) * 1e6 / added:.3f} ns per chunk added; "
-              f"real-mask bound {bound_ms:.4f} ms by {bound_by}")
+              f"real-mask bound {bound_ms:.4f} ms by {bound_by}; SASS "
+              f"opcodes: {_sass_mix(name)}")
         # the ablated builds on the real masks (values checked only by
         # _hold_ablated: cull, eval and pack alone)
         mode = modes[name]
@@ -1203,14 +1350,15 @@ def check_end_to_end(cfg, assets):
     _hold_recorded(seen, f"headline (microbatch {MICRO})")
     (win, rec), kw = seen["shade_windows"]
     k1_ms = _time_ms(lambda: R.shade_windows(win, rec, **kw), REPS)
-    tests, n_ops, _ = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+    t = _tests_made(win, cfg.tile_h, cfg.raster_cols, s)
+    print(_tests_line("headline K1", t))
     bound_ms, bound_by = _bound(_raster_bytes(
         win, R.shade_windows(win, rec, **kw),
         _raster_kernels()["raster_shade"][3], cfg.raster_cols,
-        assets.n_faces), n_ops, "raster_shade (headline)")
+        assets.n_faces), t["needed_ops"], "raster_shade (headline)",
+        t["group_ops"])
     print(f"headline K1: {k1_ms:.3f} ms a launch of {MICRO} (every image "
-          f"the mean face), {tests:,} tests made, bound {bound_ms:.4f} ms "
-          f"by {bound_by}")
+          f"the mean face), bound {bound_ms:.4f} ms by {bound_by}")
     del seen, cv, means, win, rec
     # the stage split of the headline's own model and images
     _stage_split(bench.headline_pipeline(cfg, assets, DEVICE),
@@ -2013,15 +2161,41 @@ def check_render512():
     return launches
 
 
-def _raster_bound(name, win, kw, got):
-    """(tests made, tests issued, bound_ms, bound_by) of rasterizer `name`
-    on these windows, launched with kw, whose outputs are got."""
-    made, n_ops, issued = _tests_made(win, kw["tile_h"], kw["n_cols"],
-                                      kw["width"])
+def _raster_bound(name, win, kw, got, issued_images=None):
+    """(_tests_made's counts, bound_ms, bound_by) of rasterizer `name` on
+    these windows, launched with kw, whose outputs are got."""
+    t = _tests_made(win, kw["tile_h"], kw["n_cols"], kw["width"],
+                    issued_images)
     bound_ms, bound_by = _bound(
         _raster_bytes(win, got, _raster_kernels()[name][3], kw["n_cols"],
-                      kw["n_faces"]), n_ops, f"{name} (tile_h {kw['tile_h']})")
-    return made, issued, bound_ms, bound_by
+                      kw["n_faces"]), t["needed_ops"],
+        f"{name} (tile_h {kw['tile_h']})", t["group_ops"])
+    return t, bound_ms, bound_by
+
+
+def _rasterizers_on(win, rec, kw, t, where):
+    """K1 and K4 on a K2 call's windows and records: each held against
+    its plain version on the first RENDER_HOLD_IMAGES images, timed a
+    launch on all of them, and bounded on those windows' tests t
+    (_tests_made's, the same for the three kernels) and its own bytes;
+    one line."""
+    parts = []
+    n = RENDER_HOLD_IMAGES
+    for name in ("raster_shade", "raster_pos"):
+        kernel, plain, _, fields = _raster_kernels()[name]
+        got = kernel(win, rec, **kw)
+        torch.cuda.synchronize()
+        err = _hold(name, tuple(g[:n] for g in got),
+                    plain(_head(win, n), rec[:n], **kw),
+                    f"{where}, first {n} images")
+        ms = _time_ms(lambda: kernel(win, rec, **kw), REPS)
+        bound_ms, bound_by = _bound(
+            _raster_bytes(win, got, fields, kw["n_cols"], kw["n_faces"]),
+            t["needed_ops"], f"{name} (tile_h {kw['tile_h']})")
+        parts.append(f"{name} {ms:.4f} ms a launch, max|err| {err:.3g}, "
+                     f"bound {bound_ms:.4f} ms by {bound_by}")
+        del got
+    print(f"{where}: on K2's windows and records, {'; '.join(parts)}")
 
 
 def check_render_bench():
@@ -2037,8 +2211,10 @@ def check_render_bench():
     max |ref| and bitwise over two launches); ms a batch and faces/s;
     K2's and K3's ms a launch on the recorded calls, K2's tests made (in
     the tile) and issued (the micro-tiles' whole groups) and its bound,
-    K3's bound and index_add_ (_select_grad_times); the peak of
-    allocated memory. Returns the launches summed."""
+    K3's bound and index_add_ (_select_grad_times); at 512 px, K1 and K4
+    timed and bounded on K2's windows and held on their first images
+    (_rasterizers_on); the peak of allocated memory. Returns the
+    launches summed."""
     from facerecon_tpu_torch import render_bench
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import rasterize as R
@@ -2076,9 +2252,11 @@ def check_render_bench():
         (win, rec), kw = seen["select_windows"]
         got = R.select_windows(win, rec, **kw)
         k2_ms = _time_ms(lambda: R.select_windows(win, rec, **kw), REPS)
-        made, issued, bound_ms, bound_by = _raster_bound("raster_select",
-                                                         win, kw, got)
+        t, bound_ms, bound_by = _raster_bound("raster_select", win, kw,
+                                              got)
         del got
+        if size == 512:
+            _rasterizers_on(win, rec, kw, t, where)
         k3 = ""
         if bwd:
             args, gkw = seen["select_grad"]
@@ -2092,8 +2270,8 @@ def check_render_bench():
               f"{RENDER_REPS} and inner {RENDER_INNER} (the reference's "
               f"3 and 8 lowered); {ms:.3f} ms/{batch} -> "
               f"{faces_s:.1f} faces/s (reps={2 * RENDER_REPS}); K2 "
-              f"{k2_ms:.4f} ms a launch{k3}; K2 tests made {made}, issued "
-              f"{issued} ({made / issued:.4f} of them in the tile); K2 "
+              f"{k2_ms:.4f} ms a launch{k3}; "
+              f"{_tests_line('K2', t)}; K2 "
               f"bound {bound_ms:.4f} ms by {bound_by}; plain holds "
               f"{t_hold:.1f} s; peak allocated {peak:.2f} GiB; launches "
               f"{launches}; {time.perf_counter() - t0:.1f} s on "
@@ -2146,9 +2324,10 @@ def check_raster_bench():
         k4_ms = _time_ms(lambda: R.pos_windows(win, **kw), REPS)
         bound = ""
         if not cull:
-            made, issued, bound_ms, bound_by = _raster_bound(
-                "raster_pos", win, kw, R.pos_windows(win, **kw))
-            bound = (f"; K4 tests made {made}, issued {issued}, bound "
+            t, bound_ms, bound_by = _raster_bound(
+                "raster_pos", win, kw, R.pos_windows(win, **kw),
+                RASTER_COUNT_IMAGES)
+            bound = (f"; {_tests_line('K4', t)}, bound "
                      f"{bound_ms:.4f} ms by {bound_by}")
         cover = float((res["out"] >= 0).float().mean())
         _, ms, faces_s = res["runs"][-1]
@@ -2563,6 +2742,7 @@ def main() -> int:
     measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
                                            rng)[0]
     check_wide_band(cfg, assets)
+    _timed("band sweep", check_band_sweep, cfg, assets)
     launches = check_end_to_end(cfg, assets)
     train_launches = check_training(cfg, assets)
     contract_launches = check_contract(cfg, assets)

@@ -10,15 +10,17 @@
 // The §9.5 contract path (ops/rasterize.rasterize_batch) decodes the
 // barycentrics from the winner's setup row, which the row output names.
 //
-// Bound on this card: the f32 work of the pixel x triangle tests that the
-// group cull keeps (it writes only 12 bytes a pixel). The design runs
-// the z-test of raster_shade.cu unchanged through the shared skeleton
-// (raster_common.cuh, tile_raster): 2 x 2 pixels a lane share a
-// triangle's shared-memory read and their qx/qy products, each warp
-// drops the triangles of its chunk segment that cover no pixel center of
-// its pixel group for certain (an exact bound), and the next segment
-// loads while the current one is tested. The epilogue writes one pixel a
-// thread, row-major within the group, so the plane stores are coalesced.
+// Bound on this card: the bytes (the walked setup chunks and 12 bytes a
+// pixel of outputs); the pixel x triangle tests the inputs need are far
+// fewer. The design runs the z-test of raster_shade.cu unchanged through
+// the shared skeleton (raster_common.cuh, tile_raster): each warp drops
+// the triangles of its chunk segment that cover no pixel center of its
+// pixel group for certain (an exact bound), each lane finds the
+// micro-tiles its own triangle covers, the lane of each 2 x 2 micro-tile
+// z-tests only those triangles (one shared-memory read and the qx/qy
+// products shared over its 4 pixels), and the next segment loads while
+// the current one is tested. The epilogue writes one pixel a thread,
+// row-major within the group, so the plane stores are coalesced.
 //
 // Layout (all row-major, contiguous): setup, blo/bn, cmask as in
 // raster_common.cuh. Outputs: tri_id (B, H, W) i32 and row (B, H, W) i32
@@ -35,7 +37,7 @@ namespace {
 
 using namespace raster;
 
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
 raster_pos_kernel(const float* __restrict__ setup,
                   const int* __restrict__ blo, const int* __restrict__ bn,
                   const int* __restrict__ cmask, int* __restrict__ tri_id,

@@ -10,17 +10,17 @@
 // 48/56-row hi/lo bf16 record, no banded bf16 output. A pixel reads its
 // winner's 20 f32 fields directly and writes them as f32 image planes.
 //
-// Bound on this card: the f32 work of the pixel x triangle tests that the
-// group cull keeps, with the bytes close behind (the walked setup chunks,
-// the winners' 20 record fields, the 22 output planes at 88 bytes a
-// pixel). The design runs the z-test
-// of raster_shade.cu unchanged through the shared skeleton
-// (raster_common.cuh, tile_raster): 2 x 2 pixels a lane, an exact
-// per-group triangle cull, the next chunk segment loaded while the
-// current one is tested. Its epilogue writes one pixel a thread, row-major
-// within the group, so each of the 22 plane stores is coalesced; the 20
-// record loads of a pixel are one row each, mostly L2 hits because
-// neighbouring pixels share winners.
+// Bound on this card: the bytes (the walked setup chunks, the winners'
+// 20 record fields, the 22 output planes at 88 bytes a pixel); the
+// pixel x triangle tests the inputs need are far fewer. The design runs
+// the z-test of raster_shade.cu unchanged through the shared skeleton
+// (raster_common.cuh, tile_raster): an exact per-group triangle cull,
+// each triangle's covered micro-tiles found by its lane, each 2 x 2
+// micro-tile's lane z-testing only those, the next chunk segment loaded
+// while the current one is tested. Its epilogue writes one pixel a
+// thread, row-major within the group, so each of the 22 plane stores is
+// coalesced; the 20 record loads of a pixel are one row each, mostly L2
+// hits because neighbouring pixels share winners.
 //
 // Layout (all row-major, contiguous):
 //   setup, blo/bn, cmask as in raster_common.cuh
@@ -44,7 +44,7 @@ using namespace raster;
 
 constexpr int kSelFields = 20;
 
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
 raster_select_kernel(const float* __restrict__ setup,
                      const float* __restrict__ rec,
                      const int* __restrict__ blo, const int* __restrict__ bn,

@@ -9,15 +9,17 @@
 // select, no hi/lo bf16 record split, no lane-transposed output. A pixel
 // reads its winner's f32 record directly and writes f32.
 //
-// Bound on this card: the pixel x triangle coverage/depth tests, which
-// run one instruction at a time (the build has -fmad=false for bit
-// parity, so no multiply-add fuses), and the bytes of setup, records and
-// outputs. The design cuts the instructions a test costs and the tests
-// made (raster_common.cuh, tile_ztest): 2 x 2 pixels a lane share one
-// shared-memory read of a triangle and their qx/qy products (about 11
-// f32 ops a test against 15); each warp drops, before testing, the
-// triangles of its chunk segment that cover no pixel center of its
-// pixel group for certain (an exact, monotone-rounding bound); the next
+// Bound on this card: the bytes of setup, records and outputs; the
+// pixel x triangle tests the inputs need (the pixel centers in each
+// triangle's bounding box) are far fewer. The cost is in the tests the
+// design issues, one instruction at a time (the build has -fmad=false
+// for bit parity, so no multiply-add fuses), and the design cuts them
+// (raster_common.cuh, tile_ztest): each warp drops the triangles of its
+// chunk segment that cover no pixel center of its pixel group for
+// certain (an exact, monotone-rounding bound), each lane finds the
+// micro-tiles its own triangle covers (tile_hits), and the lane that
+// owns a 2 x 2 micro-tile z-tests only those triangles, sharing one
+// shared-memory read and the qx/qy products over its 4 pixels; the next
 // segment loads while the current one is tested. One block of 4 warps a
 // column tile of a band, any size (raster_common.cuh, tile_raster, the
 // skeleton K2 and K4 share): it loops over pixel groups of up to 32
@@ -43,7 +45,7 @@ namespace {
 
 using namespace raster;
 
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
 raster_shade_kernel(const float* __restrict__ setup,
                     const float* __restrict__ rec,
                     const int* __restrict__ blo, const int* __restrict__ bn,

@@ -24,9 +24,12 @@ wrapper that launches it on CUDA tensors, runs its plain PyTorch version
 K1, K2 and K4 share one micro-tiled z-test and block skeleton
 (`csrc/raster_common.cuh`) and take one launch shape (`_raster_ints`):
 a block of 128 threads for each (column tile, band, image), for a band
-of any size; a block walks its tile in pixel groups (`pixel_group`) and
+of any size; a block walks its tile in pixel groups (`pixel_group`),
 drops, per group, only triangles that cover none of the group's pixel
-centers (`cull_keeps` is that cull's plain twin).
+centers (`cull_keeps` is that cull's plain twin), and z-tests each
+2 x 2 micro-tile only against the triangles that cover one of its
+pixels (`microtile_mask` is the twin of those masks, `tests_issued`
+counts the tests the kernels issue).
 `RasterizeSelect` is the autograd Function over K2 and K3, and
 `rasterize_select` chains binning and it. `rasterize_positions` chains
 binning and K4, and `rasterize_batch` (the §9.5 (tri_id, bary, zbuf)
@@ -52,6 +55,8 @@ _REF_ROWS = 8192        # rows per step of the plain version's window walk
 _SEL = 20               # record fields the select returns per pixel
 _GRAD = 17              # differentiable record fields
 _MICRO = 2              # a kernel lane's micro-tile: 2 x 2 pixels
+_COUNT_STEP = 8192      # (band, column, chunk) triples tests_issued takes
+                        # at once
 
 
 def padded_rows(n_faces: int) -> int:
@@ -223,12 +228,10 @@ def pixel_group(tile_h: int, col_w: int) -> tuple[int, int]:
     return gc * _MICRO, min(mrows, 32 // gc) * _MICRO
 
 
-def cull_keeps(f, x0, x1, y0, y1):
-    """The kernels' per-group triangle cull (csrc/raster_common.cuh,
-    cull_live) in float32, op for op: False where the triangle with setup
-    fields f[0..10] covers no pixel center of the rectangle [x0, x1] x
-    [y0, y1] for certain, as the z-test's float ops decide coverage.
-    Broadcasts over the fields' and the bounds' shapes."""
+def _extents(f, x0, x1, y0, y1):
+    """(hi0, hi1, lo0, lo1): the extremes of the edge forms e0 and e1 over
+    the pixel centers of [x0, x1] x [y0, y1], as csrc/raster_common.cuh's
+    cull_live computes them, in float32 op for op."""
     qxl, qxh = x0 - f[9], x1 - f[9]
     qyl, qyh = y0 - f[10], y1 - f[10]
 
@@ -242,7 +245,155 @@ def cull_keeps(f, x0, x1, y0, y1):
            + ext(torch.minimum, f[1], qyl, qyh)) + f[2]
     lo1 = (ext(torch.minimum, f[3], qxl, qxh)
            + ext(torch.minimum, f[4], qyl, qyh)) + f[5]
+    return hi0, hi1, lo0, lo1
+
+
+def cull_keeps(f, x0, x1, y0, y1):
+    """The kernels' per-group triangle cull (csrc/raster_common.cuh,
+    cull_live) in float32, op for op: False where the triangle with setup
+    fields f[0..10] covers no pixel center of the rectangle [x0, x1] x
+    [y0, y1] for certain, as the z-test's float ops decide coverage.
+    Broadcasts over the fields' and the bounds' shapes."""
+    hi0, hi1, lo0, lo1 = _extents(f, x0, x1, y0, y1)
     return ~((hi0 < 0) | (hi1 < 0) | (lo0 + lo1 > 1))
+
+
+def microtile_mask(f, gx, gy, gc: int, gr: int, x_lim, y_lim):
+    """(tested, hits): the micro-tiles of a pixel group on which the
+    kernels test a triangle (csrc/raster_common.cuh, tile_hits), each
+    (..., gr, gc) bool over the group's gr x gc micro-tiles of 2 x 2 px,
+    first pixel (gx, gy) (ints or int tensors broadcasting with the
+    fields f[k]), in float32 op for op. Micro-tile (i, j) is in the group
+    if its first pixel lies before x_lim and y_lim (the first column and
+    row past the tile and the image); its pixel centers are [gx + 2j, gx
+    + 2j + 1] x [gy + 2i, gy + 2i + 1] + 0.5, its second row dropped where
+    it lies at or past y_lim. `tested`: its rectangle passes cull_live's
+    tests (cull_keeps) and the third edge's bound (edge_slack: the float
+    form of (wa0 + wa1) qx + min_r fl(b0 + b1) + wc0 + wc1 - 1, at the
+    pixel column nearer the side where it grows, against a slack of a few
+    ulps);
+    `hits`: the tested
+    micro-tiles where the triangle covers one of its pixel centers, by
+    the z-test's float ops. The kernels apply both to the triangles the
+    group cull keeps (cull_keeps on the group's rectangle)."""
+    dev = f.device
+    j = torch.arange(gc, device=dev)
+    i = torch.arange(gr, device=dev)[:, None]
+    gx = torch.as_tensor(gx, device=dev)[..., None, None]
+    gy = torch.as_tensor(gy, device=dev)[..., None, None]
+    x_lim = torch.as_tensor(x_lim, device=dev)[..., None, None]
+    y_lim = torch.as_tensor(y_lim, device=dev)[..., None, None]
+    xt = gx + _MICRO * j                                   # (..., 1, gc)
+    yt = gy + _MICRO * i                                   # (..., gr, 1)
+    x0 = xt.to(torch.float32) + 0.5
+    y0 = yt.to(torch.float32) + 0.5
+    two = yt + 1 < y_lim
+    y1 = torch.where(two, y0 + 1.0, y0)
+    fe = f[..., None, None]
+    # the third edge's bound (raster_common.cuh, edge_slack)
+    b = [(fe[1] * (y - fe[10]), fe[4] * (y - fe[10])) for y in (y0, y1)]
+    w = fe[0] + fe[3]
+    k = ((torch.minimum(b[0][0] + b[0][1], b[1][0] + b[1][1]) + fe[2])
+         + fe[5]) + -1.0
+    bmax = torch.maximum(b[0][0].abs() + b[0][1].abs(),
+                         b[1][0].abs() + b[1][1].abs())
+    jn = torch.clamp((x_lim - gx + 1) // _MICRO, max=gc)
+    first = gx.to(torch.float32) + 0.5
+    last = (gx + _MICRO * (jn - 1) + 1).to(torch.float32) + 0.5
+    qx_max = torch.maximum((first - fe[9]).abs(), (last - fe[9]).abs())
+    u = 2.0 ** -24
+    slack = (u + 12.0 * u * ((((fe[0].abs() + fe[3].abs()) * qx_max + bmax)
+                              + (fe[2].abs() + fe[5].abs())) + 1.0)) + 1e-30
+    qw = (x0 + torch.where(w > 0, 0.0, 1.0)) - fe[9]
+    tested = (cull_keeps(fe, x0, x0 + 1.0, y0, y1) & ((w * qw + k) <= slack)
+              & (xt < x_lim) & (yt < y_lim))
+    hits = torch.zeros_like(tested)
+    for r in range(_MICRO):
+        qy = (y0 + float(r)) - fe[10]
+        for c in range(_MICRO):
+            qx = (x0 + float(c)) - fe[9]
+            e0 = fe[0] * qx + fe[1] * qy + fe[2]
+            e1 = fe[3] * qx + fe[4] * qy + fe[5]
+            cov = (torch.minimum(e0, e1) >= 0.0) & (e0 + e1 <= 1.0)
+            hits |= cov & (two if r else True)
+    return tested, hits & tested
+
+
+def tests_issued(win: Windows, *, height: int, width: int, tile_h: int,
+                 n_cols: int) -> tuple[int, int]:
+    """(mask tests, list tests): the pixel x triangle tests K1, K2 and K4
+    issue on these windows (csrc/raster_common.cuh, tile_ztest). For
+    each pixel group of each column tile (pixel_group; a group wholly
+    past the tile or the image is skipped), each 32-row segment of each
+    chunk the tile's walk visits (its masked chunks of the first 64, then
+    every chunk beyond) issues, over its 32 lanes:
+      - the coverage tests of tile_hits: a lane tests its triangle, if
+        the group cull keeps it, on the pixels (2 a row) of each
+        micro-tile microtile_mask's `tested` holds; the warp issues the
+        most any lane makes;
+      - the z-tests of test_list: a lane tests its micro-tile's pixels
+        (4; 2 where the group is one pixel row of the tile) on each
+        triangle whose `hits` hold it; the warp issues the longest list.
+    _COUNT_STEP bounds the (band, column, chunk) triples evaluated at
+    once."""
+    col_w = col_width(width, n_cols)
+    gw, gh = pixel_group(tile_h, col_w)
+    gc, gr = gw // _MICRO, gh // _MICRO
+    setup = win.setup
+    bsz, _, rows = setup.shape
+    n_bands = win.blo.shape[1]
+    dev = setup.device
+    lane = torch.arange(32, device=dev, dtype=torch.int64)
+    words = win.cmask.view(bsz, n_bands, n_cols, _MWORDS).to(torch.int64)
+    bits = ((words[..., None] >> lane) & 1).reshape(
+        bsz, n_bands, n_cols, _MWORDS * 32).bool()
+    k = torch.arange(max(_WINDOW, int(win.bn.max()) if bsz else 0),
+                     device=dev)
+    j = torch.arange(_CHUNK, device=dev)
+    mask_tests = list_tests = 0
+    for b in range(bsz):
+        walked = torch.nn.functional.pad(bits[b], (0, k.numel() - _WINDOW))
+        walked = walked | ((k >= _WINDOW) & (k < win.bn[b][:, None, None]))
+        t_i, c_i, k_i = walked.nonzero(as_tuple=True)
+        for s0 in range(0, t_i.numel(), _COUNT_STEP):
+            step = slice(s0, s0 + _COUNT_STEP)
+            t, c = t_i[step], c_i[step]
+            r = ((win.blo[b][t] + k_i[step])[:, None] * _CHUNK
+                 + j).clamp(max=rows - 1)                  # (N, 128)
+            f = setup[b, :11][:, r]                        # (11, N, 128)
+            x_tile, y_tile = c * col_w, t * tile_h
+            x_lim = torch.clamp(x_tile + col_w, max=width)
+            y_lim = torch.clamp(y_tile + tile_h, max=height)
+            for gy in range(0, tile_h, gh):
+                for gx in range(0, col_w, gw):
+                    gx_px, gy_px = x_tile + gx, y_tile + gy
+                    ok = (gx_px < x_lim) & (gy_px < y_lim)
+                    if not bool(ok.any()):
+                        continue
+                    gx1 = torch.minimum(gx_px + gw, x_lim) - 1
+                    gy1 = torch.minimum(gy_px + gh, y_lim) - 1
+                    live = cull_keeps(
+                        f, gx_px[:, None].to(torch.float32) + 0.5,
+                        gx1[:, None].to(torch.float32) + 0.5,
+                        gy_px[:, None].to(torch.float32) + 0.5,
+                        gy1[:, None].to(torch.float32) + 0.5)
+                    live = (live & ok[:, None])[..., None, None]
+                    tested, hits = microtile_mask(
+                        f, gx_px[:, None], gy_px[:, None], gc, gr,
+                        x_lim[:, None], y_lim[:, None])
+                    row_px = torch.where(
+                        gy_px[:, None] + _MICRO * torch.arange(gr, device=dev)
+                        + 1 < y_lim[:, None], 4, 2)        # (N, gr)
+                    per_lane = ((tested & live).sum(dim=3)
+                                * row_px[:, None]).sum(dim=2)  # (N, 128)
+                    mask_tests += int(per_lane.reshape(-1, 4, 32).amax(
+                        dim=2).sum()) * 32
+                    per_tile = (hits & live).reshape(-1, 4, 32,
+                                                     gr * gc).sum(dim=2)
+                    pixels = torch.where(y_lim - gy_px == 1, 2, 4)
+                    list_tests += int((per_tile.amax(dim=2)
+                                       * pixels[:, None]).sum()) * 32
+    return mask_tests, list_tests
 
 
 def _band_winners(win: Windows, height: int, width: int, tile_h: int,

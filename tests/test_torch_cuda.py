@@ -30,7 +30,12 @@ x 7 columns of 80 px) launches K2 and K3 once each, both held against
 their plain versions; K4 at raster_bench's shape with --cull (tile_h 8 x
 one 224-px column, the asset's face order) equals its plain version;
 the twins' mains launch exactly (1 + 3 reps) x inner K2 (and K3 with
---bwd), and 1 + 3 reps K4 plus one for --check. The probes' twins
+--bwd), and 1 + 3 reps K4 plus one for --check. K1, K2 and K4 equal
+their plain versions on bands of 1 to 136 rows in both face orders, on
+saturated chunk masks, at 512 px with 1-row bands (and K2's
+RP_ABLATE=cull build there, bit for bit), and on a shuffled order with
+an image turned to show its back faces, with and without
+cull_backfaces. The probes' twins
 (facerecon_tpu_torch/benchmarks/): the s2d stem and the native 7x7/s2
 stem agree on the card (f32 within 1e-5 x max |ref|, bf16 within 2^-6 x
 max |ref|: each output rounded twice to bf16), the two pool forms differ
@@ -71,10 +76,12 @@ def card():
 
 
 def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
-                   tz=None, away=False, turned=False, cull=False):
+                   tz=None, away=False, turned=False, cull=False,
+                   size=None):
     """Records and windows at tiny_config(n_vertices=6000): 11.7k faces,
     so a shuffled order overflows the 64-chunk column masks. tile_h and
-    n_cols override the config's bands; tz sets every face's depth
+    n_cols override the config's bands, size its image (focal scaled
+    with it); tz sets every face's depth
     translation (9.0: 1 from the camera, rows of several hundred px);
     away moves the last image's face out of frame; turned turns it 2.5
     rad about the vertical axis (mostly back faces show); cull bins with
@@ -82,6 +89,9 @@ def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
     cfg = tiny_config(n_vertices=6000)
     cfg = dataclasses.replace(cfg, tile_h=tile_h or cfg.tile_h,
                               raster_cols=n_cols or cfg.raster_cols)
+    if size is not None:
+        cfg = dataclasses.replace(cfg, image_size=size,
+                                  focal=cfg.focal * size / cfg.image_size)
     assets = synthetic_bfm(cfg, 0)
     bfm = device_bfm(assets, card)
     coeff = sample_coeffs(np.random.default_rng(5), cfg, batch)
@@ -928,3 +938,65 @@ def test_pack_stripped_leaves_outputs_untouched(card, mode):
     outs, _, _ = _floor_case(card, mode, "pack")
     for t in outs:
         assert bool((t == -12345).all())
+
+
+@pytest.mark.parametrize("tile_h", [1, 2, 3, 4, 5, 8, 64, 136])
+def test_raster_kernels_at_every_band_height(card, tile_h):
+    """K1, K2 and K4 equal their plain versions on bands of 1, 2, 3, 4, 5,
+    8, 64 and 136 rows (a 1-row band: each micro-tile's second row lies
+    past the tile; 3 rows x 32-px columns and 5 rows x 16-px columns:
+    each pixel group of 2 and 3 micro-rows ends in a micro-row whose
+    second pixel row lies past the tile; 136: past the image), in both
+    face orders (the shuffled one walks chunks beyond the 64-chunk
+    masks)."""
+    n_cols = {5: 4}.get(tile_h, 2 if tile_h <= 4 else 1)
+    for order in ("raster_rows", "shuffled"):
+        _, win, rec, kw = _kernel_inputs(card, order, batch=2,
+                                         tile_h=tile_h, n_cols=n_cols)
+        ref = _hold_raster(win, rec, kw)
+        assert float((ref[0] >= 0).float().mean()) > 0.1
+
+
+@pytest.mark.parametrize("order", ["raster_rows", "shuffled"])
+def test_raster_kernels_on_saturated_masks(card, order):
+    """With every chunk-mask bit set (floor_probe's FLOOR_MASK=ones: each
+    tile walks every chunk of its window's first 64), K1, K2 and K4
+    still equal their plain versions: the extra chunks hold rows that
+    cover none of the tile's pixels, and the micro-tile masks drop
+    them."""
+    _, win, rec, kw = _kernel_inputs(card, order, batch=2)
+    ones = win._replace(cmask=torch.full_like(win.cmask, -1))
+    ref = _hold_raster(ones, rec, kw)
+    assert torch.equal(ref[0], R.pos_windows(win, **kw)[0])
+
+
+def test_raster_kernels_at_512px_one_row_bands(card):
+    """At 512 px with tile_h 1 and 7 columns of 80 px (render_bench's 512
+    px shape): two pixel groups a column tile, the second 16 px wide,
+    and the last column tile reaching past the image; K1, K2 and K4 equal
+    their plain versions, and so does the RP_ABLATE=cull build of K2
+    (every lane tests all 32 rows of a segment) bit for bit."""
+    from facerecon_tpu_torch.benchmarks import floor_probe as FP
+    _, win, rec, kw = _kernel_inputs(card, "raster_rows", batch=2,
+                                     tile_h=1, n_cols=7, size=512)
+    assert R.col_width(512, 7) == 80
+    ref = _hold_raster(win, rec, kw)
+    assert float((ref[0] >= 0).float().mean()) > 0.05
+    fkw = dict(size=512, tile_h=1, n_cols=7, n_faces=kw["n_faces"])
+    outs = FP.outputs("select", 2, 512, card, -12345)
+    FP.launch("select", win, rec, outs, defines=FP.ablation("cull",
+                                                           "select"), **fkw)
+    full = R.select_windows(win, rec, **kw)
+    for a, b in zip(outs, full):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["all", "cull"])
+def test_raster_kernels_on_shuffled_turned_faces(card, cull):
+    """A shuffled face order with an image turned 2.5 rad (mostly back
+    faces, which overlap the front ones: long per-lane lists), without
+    and with cull_backfaces: K1, K2 and K4 equal their plain versions."""
+    _, win, rec, kw = _kernel_inputs(card, "shuffled", batch=2,
+                                     turned=True, cull=cull)
+    ref = _hold_raster(win, rec, kw)
+    assert float((ref[0][0] >= 0).float().mean()) > 0.1
