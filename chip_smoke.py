@@ -32,7 +32,8 @@ Phases (any failed check raises, and the script exits non-zero):
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch of a random-weight model (finite outputs,
      coverage, one K1 launch per call, agreement with the same float32
-     pipeline run on the CPU), its stage split and one timed run of it
+     pipeline run on the CPU), its stage split (device ms of each of the
+     port's spans, one profiler pass) and one timed run of it
      (the inference figure's earlier workload); then the benchmark's
      headline (facerecon_tpu_torch.bench.headline: the BN model's
      initial state, zero head, folded, images from default_rng(0), batch
@@ -42,7 +43,8 @@ Phases (any failed check raises, and the script exits non-zero):
      against the plain version, timed and bounded; its JSON line; its
      stage split.
   5. training main path: the BatchNorm ResNet-50 in bf16, 224 px, batch
-     128, random images and landmarks: a stage split and 10 steps on one
+     128, random images and landmarks: a stage split (the port's spans,
+     the backward cut at fr.coeff_grad) and 10 steps on one
      rendered batch of 8, whose loss must fall; then the benchmark's
      train mode (bench.train: 1 warm-up and 5 timed steps) with the
      counters reset just before and read just after (one K2 and one K3
@@ -1305,10 +1307,11 @@ def check_end_to_end(cfg, assets):
     bf16_diff = float((cv[:2].cpu() - cc).abs().max())
     print(f"bf16 model vs float32 CPU: coeff max diff {bf16_diff:.3g}")
 
-    # stage split of one microbatch (CUDA events, after warm-up)
+    # stage split of one microbatch (the port's spans, after warm-up)
     batch = torch.rand((BATCH, s, s, 3),
                        generator=torch.Generator().manual_seed(2)).to(DEVICE)
-    _stage_split(pipe, batch[:MICRO], "random head")
+    _span_split(f"random head, microbatch {MICRO}",
+                lambda: pipe.reconstruct(batch[:MICRO]))
 
     # the workload the inference figure timed before the benchmark's
     # headline, once: these random weights (each image regresses a pose
@@ -1361,53 +1364,44 @@ def check_end_to_end(cfg, assets):
           f"the mean face), bound {bound_ms:.4f} ms by {bound_by}")
     del seen, cv, means, win, rec
     # the stage split of the headline's own model and images
-    _stage_split(bench.headline_pipeline(cfg, assets, DEVICE),
-                 torch.from_numpy(bench.headline_images(MICRO, s)).to(DEVICE),
-                 "headline")
+    head = bench.headline_pipeline(cfg, assets, DEVICE)
+    images = torch.from_numpy(bench.headline_images(MICRO, s)).to(DEVICE)
+    _span_split(f"headline, microbatch {MICRO}",
+                lambda: head.reconstruct(images))
+    del head, images
     torch.cuda.empty_cache()
     return launches
 
 
-def _stage_split(pipe, images, what: str):
-    """ms of each stage of one reconstruct call, timed with CUDA events."""
-    from facerecon_tpu_torch.ops import rasterize as R
-    from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry
-    from facerecon_tpu_torch.ops.render import pack_render_records
-    from facerecon_tpu_torch.ops.sh import illuminate
-    from facerecon_tpu_torch.utils.coeffs import split_coeff
-    cfg, bfm, s = pipe.cfg, pipe.bfm, pipe.cfg.image_size
-    pipe.reconstruct(images)
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    with torch.no_grad():
-        mark("start")
-        c = split_coeff(pipe.model(images), cfg)
-        mark("cnn")
-        geom = coeffs_to_geometry(c, bfm, cfg)
-        rad = illuminate(geom.texture, geom.normals, c.gamma)
-        mark("geometry+sh")
-        rec = pack_render_records(geom.verts_ndc, rad, bfm.raster_rows, s, s,
-                                  R.padded_rows(bfm.raster_rows.shape[0]))
-        mark("records")
-        win = R.band_windows(geom.verts_ndc, bfm.raster_rows,
-                             bfm.raster_row_id, s, s, cfg.tile_h,
-                             cfg.raster_cols)
-        mark("binning")
-        R.shade_windows(win, rec, height=s, width=s, tile_h=cfg.tile_h,
-                        n_cols=cfg.raster_cols, n_faces=bfm.faces.shape[0])
-        mark("raster_shade")
+def _span_split(what: str, run):
+    """ms of each stage of one run() after a warm-up run, read from the
+    port's own spans (profile_trace.span): one torch.profiler pass
+    through profile_trace.summarize's stages, each the device time of
+    the kernels, copies and fills it launched, on any thread, the
+    backward cut at its fr.coeff_grad mark. Fails on a stage whose
+    device events start before its host span."""
+    from torch.profiler import ProfilerActivity, profile
+    from facerecon_tpu_torch import profile_trace
+    run()
     torch.cuda.synchronize()
-    parts = [f"{n} {a.elapsed_time(b):.3f}"
-             for (_, a), (n, b) in zip(marks[:-1], marks[1:])]
-    total = marks[0][1].elapsed_time(marks[-1][1])
-    print(f"stage ms ({what}, microbatch {images.shape[0]}): "
-          + ", ".join(parts)
-          + f"; total {total:.3f}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    s = profile_trace.summarize(profile_trace.trace_events(prof))
+    st = s["stages"]
+    early = {k: r["early"] for k, r in st.items() if r["early"]}
+    if early:
+        raise AssertionError(f"stage split ({what}): device events start "
+                             f"before their span: {early}")
+    ms = {k: r["device_ms"] for k, r in st.items() if k != "fr.coeff_grad"}
+    if "fr.render" in ms:
+        ms["fr.render rest"] = ms["fr.render"] - sum(
+            ms.get(k, 0.0) for k in ("fr.geometry", "fr.records",
+                                     "fr.binning"))
+    print(f"stage ms ({what}, from the port's spans): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; busy {s['busy_ms']:.3f}")
 
 
 def check_training(cfg, assets):
@@ -1427,7 +1421,8 @@ def check_training(cfg, assets):
     step = make_train_step(pipe)
     images, lmk = (torch.from_numpy(x[0]).to(DEVICE)
                    for x in bench.train_inputs(1, TRAIN_BATCH, s))
-    _train_stage_split(pipe, state, images, lmk)
+    _span_split(f"train step, batch {TRAIN_BATCH}",
+                lambda: step(state, images, lmk))
 
     # the loss falls on one rendered batch (bench.py's 1000-step schedule)
     state = init_state(pipe, total_steps=1000, seed=0)
@@ -1466,71 +1461,6 @@ def check_training(cfg, assets):
     del seen, parts
     torch.cuda.empty_cache()
     return launches
-
-
-def _train_stage_split(pipe, state, images, lmk):
-    """ms of each stage of one training step, timed with CUDA events; the
-    backward's stages are split by gradient hooks on the select output,
-    the records and the coefficients."""
-    from facerecon_tpu_torch.ops import rasterize as R
-    from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry
-    from facerecon_tpu_torch.ops.losses import total_loss
-    from facerecon_tpu_torch.ops.render import (RenderOut, _render_fields,
-                                                _shade_from_sel, _stack24)
-    from facerecon_tpu_torch.ops.sh import illuminate
-    from facerecon_tpu_torch.train import make_train_step
-    from facerecon_tpu_torch.utils.coeffs import split_coeff
-    cfg, bfm, s = pipe.cfg, pipe.bfm, pipe.cfg.image_size
-    make_train_step(pipe)(state, images, lmk)           # warm-up
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    state.optimizer.zero_grad(set_to_none=True)
-    mark("start")
-    coeff_vec = pipe.model(images)
-    mark("cnn fwd")
-    c = split_coeff(coeff_vec, cfg)
-    geom = coeffs_to_geometry(c, bfm, cfg)
-    radiance = illuminate(geom.texture, geom.normals, c.gamma)
-    mark("geometry+sh fwd")
-    rows = bfm.raster_rows
-    records = _stack24(_render_fields(geom.verts_ndc, radiance, rows, s, s,
-                                      corner_adj=bfm.raster_corner_adj),
-                       R.padded_rows(rows.shape[0]), skin=bfm.raster_skin)
-    mark("records fwd")
-    with torch.no_grad():
-        win = R.band_windows(geom.verts_ndc, rows, bfm.raster_row_id, s, s,
-                             cfg.tile_h, cfg.raster_cols)
-    mark("binning")
-    tri_id, _, sel = R.RasterizeSelect.apply(records, win, s, s, cfg.tile_h,
-                                             cfg.raster_cols,
-                                             bfm.faces.shape[0])
-    mark("raster_select (K2)")
-    color, bary, skin = _shade_from_sel(tri_id, sel, s, s)
-    mask = (tri_id >= 0).to(torch.float32)
-    image = color * mask[..., None] + images * (1.0 - mask[..., None])
-    out = RenderOut(image=image, mask=mask, tri_id=tri_id, bary=bary,
-                    radiance=radiance, geometry=geom, skin=skin)
-    total, _ = total_loss(out, c, images, lmk, bfm, cfg)
-    mark("shading+losses fwd")
-    sel.register_hook(lambda g: mark("shading+losses bwd"))
-    records.register_hook(lambda g: mark("select_grad (K3)"))
-    coeff_vec.register_hook(lambda g: mark("records+geometry bwd"))
-    total.backward()
-    mark("cnn bwd")
-    state.optimizer.step()
-    state.scheduler.step()
-    mark("adam")
-    torch.cuda.synchronize()
-    parts = [f"{n} {a.elapsed_time(b):.3f}"
-             for (_, a), (n, b) in zip(marks[:-1], marks[1:])]
-    total_ms = marks[0][1].elapsed_time(marks[-1][1])
-    print(f"train stage ms (batch {images.shape[0]}): " + ", ".join(parts)
-          + f"; total {total_ms:.3f}")
 
 
 # the path's kernel wrappers in ops.rasterize -> the kernel each launches

@@ -44,6 +44,7 @@ import torch
 
 from facerecon_tpu_torch.ops import _build
 from facerecon_tpu_torch.ops.binning import bin_triangles_static_t
+from facerecon_tpu_torch.profile_trace import span
 
 _CHUNK = 128            # triangles per chunk (window-granularity unit)
 _WINDOW = 64            # chunks covered by the column masks
@@ -633,8 +634,9 @@ def _rasterize(core, records, verts_ndc, faces, height, width, tile_h,
                n_cols, cull_backfaces, row_faces, row_id):
     row_faces, row_id = _row_order(faces, row_faces, row_id)
     with torch.no_grad():
-        win = band_windows(verts_ndc, row_faces, row_id, height, width,
-                           tile_h, n_cols, cull_backfaces)
+        with span("fr.binning"):
+            win = band_windows(verts_ndc, row_faces, row_id, height, width,
+                               tile_h, n_cols, cull_backfaces)
         return core(win, records.contiguous(), height=height, width=width,
                     tile_h=tile_h, n_cols=n_cols, n_faces=faces.shape[0])
 
@@ -680,7 +682,7 @@ def rasterize_select(records, verts_ndc, faces, *, height: int, width: int,
     `verts_ndc` is detached (the binning and the z-test carry no
     gradient) and tri_id is frozen."""
     row_faces, row_id = _row_order(faces, row_faces, row_id)
-    with torch.no_grad():
+    with torch.no_grad(), span("fr.binning"):
         win = band_windows(verts_ndc.detach(), row_faces, row_id, height,
                            width, tile_h, n_cols, cull_backfaces)
     return RasterizeSelect.apply(records.contiguous(), win, height, width,

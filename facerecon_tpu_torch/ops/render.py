@@ -28,6 +28,7 @@ from facerecon_tpu_torch.ops.binning import affine_forms, ndc_to_screen
 from facerecon_tpu_torch.ops.geometry import (DeviceBFM, Geometry,
                                               coeffs_to_geometry,
                                               take_corner_planes)
+from facerecon_tpu_torch.profile_trace import span
 from facerecon_tpu_torch.utils.coeffs import Coeffs
 
 
@@ -141,20 +142,24 @@ def render_geometry(geom: Geometry, gamma, bfm: DeviceBFM,
                     image_size: Optional[int] = None,
                     inference: bool = False) -> RenderOut:
     h = w = image_size or cfg.image_size
-    radiance = sh_ops.illuminate(geom.texture, geom.normals, gamma)
+    with span("fr.geometry"):
+        radiance = sh_ops.illuminate(geom.texture, geom.normals, gamma)
     pad_rows = rasterize.padded_rows(bfm.raster_rows.shape[0])
     kw = dict(height=h, width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
               row_faces=bfm.raster_rows, row_id=bfm.raster_row_id)
     skin = None
     if inference:
-        records = pack_render_records(geom.verts_ndc, radiance,
-                                      bfm.raster_rows, h, w, pad_rows)
+        with span("fr.records"):
+            records = pack_render_records(geom.verts_ndc, radiance,
+                                          bfm.raster_rows, h, w, pad_rows)
         tri_id, color, bary = rasterize.rasterize_shaded(
             records, geom.verts_ndc, bfm.faces, **kw)
     else:
-        fields = _render_fields(geom.verts_ndc, radiance, bfm.raster_rows,
-                                h, w, corner_adj=bfm.raster_corner_adj)
-        records = _stack24(fields, pad_rows, skin=bfm.raster_skin)
+        with span("fr.records"):
+            fields = _render_fields(geom.verts_ndc, radiance,
+                                    bfm.raster_rows, h, w,
+                                    corner_adj=bfm.raster_corner_adj)
+            records = _stack24(fields, pad_rows, skin=bfm.raster_skin)
         tri_id, _, sel = rasterize.rasterize_select(
             records, geom.verts_ndc, bfm.faces, **kw)
         color, bary, skin = _shade_from_sel(tri_id, sel, h, w)
@@ -173,7 +178,9 @@ def render_coeffs(coeffs: Coeffs, bfm: DeviceBFM, cfg: FaceReconConfig,
     """Coefficients -> composited image. inference=True takes the
     forward-only in-kernel-shaded path (K1); the default is the
     differentiable training render (K2 forward, K3 backward)."""
-    geom = coeffs_to_geometry(coeffs, bfm, cfg)
-    return render_geometry(geom, coeffs.gamma, bfm, cfg,
-                           background=background, image_size=image_size,
-                           inference=inference)
+    with span("fr.render"):
+        with span("fr.geometry"):
+            geom = coeffs_to_geometry(coeffs, bfm, cfg)
+        return render_geometry(geom, coeffs.gamma, bfm, cfg,
+                               background=background, image_size=image_size,
+                               inference=inference)

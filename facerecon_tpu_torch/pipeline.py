@@ -29,6 +29,7 @@ from facerecon_tpu_torch.models.fused import (FusedResNetRegressor,
 from facerecon_tpu_torch.models.resnet import build_model
 from facerecon_tpu_torch.ops.geometry import DeviceBFM, device_bfm
 from facerecon_tpu_torch.ops.render import render_coeffs
+from facerecon_tpu_torch.profile_trace import span
 from facerecon_tpu_torch.utils.bfm import BFMAssets
 from facerecon_tpu_torch.utils.coeffs import split_coeff
 
@@ -59,7 +60,8 @@ class Pipeline:
         was = self.model.training
         self.model.eval()
         try:
-            coeff_vec = self.model(images)
+            with span("fr.cnn"):
+                coeff_vec = self.model(images)
         finally:
             self.model.train(was)
         coeffs = split_coeff(coeff_vec, self.cfg)
@@ -124,4 +126,5 @@ def regress_coeffs(pipe: Pipeline, images, train: bool = False):
     new batch_stats); train=False uses the running statistics."""
     images = torch.as_tensor(images, dtype=torch.float32, device=pipe.device)
     pipe.model.train(train)
-    return pipe.model(images)
+    with span("fr.cnn"):
+        return pipe.model(images)

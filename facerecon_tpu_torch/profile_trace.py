@@ -21,13 +21,34 @@ card unless it is "cpu".
 union of its kernels' and copies' intervals), its share of the window
 from the first host op to the last device event, the longest idle gaps
 with the innermost host op open as each began, the device ops with the
-most time, and the device events of each of the port's kernels.
+most time, the device events of each of the port's kernels, and the
+port's stages.
+
+The stages are spans the port opens with `span(name)` (and instants it
+leaves with `mark(name)`) while a profiler records, and only then: with
+none recording each costs one check. `stages(events)` reads them: for
+each name its spans' host time, the device time and launch calls of
+what they launched (on any thread), and the device's idle time within
+them; `main` prints it before its last line. The port's spans:
+  fr.cnn        the regressor's forward (Pipeline.reconstruct,
+                pipeline.regress_coeffs)
+  fr.render     ops/render.render_coeffs, one a call
+  fr.geometry   coeffs_to_geometry and sh.illuminate, inside fr.render
+  fr.records    the render records, inside fr.render
+  fr.binning    rasterize.band_windows, inside fr.render
+  fr.losses     the train step's total_loss
+  fr.backward   the train step's backward, on the calling thread
+  fr.coeff_grad (a mark) the coefficients' gradient is complete: the
+                render's backward ends and the CNN's begins
+  fr.optimizer  the train step's Adam step and schedule step
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import contextlib
 import json
 import os
 import re
@@ -36,12 +57,42 @@ import tempfile
 import torch
 
 from facerecon_tpu_torch import resolve_device
-from facerecon_tpu_torch.bench import headline_images
-from facerecon_tpu_torch.graft_entry import reconstruct_fn
 from facerecon_tpu_torch.ops import _build
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+CALL_CATS = ("cuda_runtime", "cuda_driver")
+LAUNCH = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel"
+                    r"|cuLaunchKernelEx|cudaGraphLaunch|cuGraphLaunch|"
+                    r"cudaLaunchCooperativeKernel)(_v\d+|_ptsz)?$")
+# the port's stage spans carry this prefix; a mark splits the span named
+# beside it into what was launched before it and what after
+PREFIX = "fr."
+SPLITS = {"fr.coeff_grad": "fr.backward"}
+
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a profiler records on this thread."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str):
+    """A stage of the port: record_function(name) while a profiler
+    records, so the span lands in its trace beside the device events;
+    otherwise one shared no-op context."""
+    if recording():
+        return torch.autograd.profiler.record_function(name)
+    return _OFF
+
+
+def mark(name: str) -> None:
+    """An instant of the port: record_function(name) entered and left at
+    once while a profiler records; nothing otherwise."""
+    if recording():
+        with torch.autograd.profiler.record_function(name):
+            pass
 
 
 def setup(batch: int, device="cuda", cfg=None, assets=None,
@@ -49,6 +100,8 @@ def setup(batch: int, device="cuda", cfg=None, assets=None,
     """(fn, (model, bfm, images)): the traced function, without autograd
     (the reference's jitted forward keeps no residuals), and its inputs
     as the reference's main builds them."""
+    from facerecon_tpu_torch.bench import headline_images
+    from facerecon_tpu_torch.graft_entry import reconstruct_fn
     forward, pipe = reconstruct_fn(cfg, assets, device, dtype)
     images = torch.from_numpy(headline_images(
         batch, pipe.cfg.image_size)).to(pipe.device)
@@ -92,6 +145,17 @@ def trace_events(prof) -> list:
         return load_events(path)
 
 
+def _union(intervals) -> list:
+    """Sorted, disjoint [start, end] lists covering the intervals."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
 def timeline(device, host, n_gaps: int = 5) -> dict:
     """device and host: (start, end, name) intervals in us. Returns
     busy_us (the union of the device intervals), window_us (the first
@@ -103,12 +167,7 @@ def timeline(device, host, n_gaps: int = 5) -> dict:
     list."""
     if not device:
         raise ValueError("the trace holds no device event")
-    merged = []
-    for s, e, _ in sorted(device):
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
+    merged = _union((s, e) for s, e, _ in device)
     t0 = min([merged[0][0]] + [s for s, _, _ in host])
     window = merged[-1][1] - t0
     busy = sum(e - s for s, e in merged)
@@ -132,13 +191,114 @@ def _runs(name: str, symbol: str) -> bool:
     return re.search(rf"(^|[\s:]){symbol}[(<]", name) is not None
 
 
+def _overlap(a, b) -> float:
+    """The length two unions (_union) share."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stages(events) -> dict:
+    """The port's stage spans (user annotations named PREFIX...) of a
+    Chrome trace: name -> count (spans), host_ms (the union of their
+    intervals), device_ms (the kernels, copies and fills whose launch
+    call, matched by correlation id, falls inside one of them, on any
+    thread: the autograd engine launches a CUDA backward from a thread
+    of its own), launches (launch calls inside them), idle_ms (the
+    window's device-idle stretches inside them; None without device
+    events) and early (device events that start before their span's
+    host start: 0 on one clock). Each mark of SPLITS (mark -> span)
+    adds the rows "<span> before <mark>" and "<span> after <mark>", each
+    span of that name cut at the marks inside it.
+    Spans in the order they first began, then the splits. Totals over
+    the trace: divide by a count for a unit."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    named = collections.defaultdict(list)
+    calls, device = [], {}
+    for e in spans:
+        ts = float(e["ts"])
+        te = ts + float(e.get("dur", 0))
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") == "user_annotation" and e["name"].startswith(PREFIX):
+            named[e["name"]].append((ts, te))
+        elif e.get("cat") in CALL_CATS:
+            calls.append((ts, corr, bool(LAUNCH.match(e["name"]))))
+        elif e.get("cat") in DEVICE_CATS and corr is not None:
+            us, first = device.get(corr, (0.0, te))
+            device[corr] = (us + te - ts, min(first, ts))
+    calls.sort(key=lambda c: c[0])
+    call_ts = [c[0] for c in calls]
+    idle = None
+    dev_iv = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+              for e in spans if e.get("cat") in DEVICE_CATS]
+    if dev_iv:
+        busy = _union(dev_iv)
+        t0 = min([busy[0][0]] + [float(e["ts"]) for e in spans
+                                 if e.get("cat") in HOST_CATS])
+        edges = [t0] + [e for _, e in busy]
+        idle = [[a, s] for a, (s, _) in zip(edges, busy) if s > a]
+
+    def row(intervals, count):
+        merged = _union(intervals)
+        corr, launches, early = set(), 0, 0
+        for s, e in merged:
+            lo, hi = (bisect.bisect_left(call_ts, s),
+                      bisect.bisect_left(call_ts, e))
+            for _, c, launch in calls[lo:hi]:
+                launches += launch
+                if c in device and c not in corr:
+                    corr.add(c)
+                    early += device[c][1] < s
+        return {"count": count,
+                "host_ms": sum(e - s for s, e in merged) / 1e3,
+                "device_ms": sum(device[c][0] for c in corr) / 1e3,
+                "launches": launches,
+                "idle_ms": None if idle is None
+                else _overlap(merged, idle) / 1e3,
+                "early": early}
+
+    out = {name: row(named[name], len(named[name]))
+           for name in sorted(named, key=lambda n: min(named[n]))}
+    for m, within in SPLITS.items():
+        if m not in named or within not in named:
+            continue
+        before, after = [], []
+        for s, e in named[within]:
+            cuts = sorted(t for t, _ in named[m] if s <= t < e)
+            if cuts:
+                before.append((s, cuts[0]))
+                after.append((cuts[-1], e))
+        out[f"{within} before {m}"] = row(before, len(before))
+        out[f"{within} after {m}"] = row(after, len(after))
+    return out
+
+
+def stage_lines(st: dict) -> list:
+    """One line a row of stages()."""
+    lines = []
+    for name, r in st.items():
+        idle = ("n/a" if r["idle_ms"] is None
+                else f"{r['idle_ms']:.3f} ms")
+        lines.append(f"stage {name}: {r['count']} spans, host "
+                     f"{r['host_ms']:.3f} ms, device {r['device_ms']:.3f} "
+                     f"ms, {r['launches']} launches, idle {idle}")
+    return lines
+
+
 def summarize(events, n_top: int = 10, n_gaps: int = 5) -> dict:
     """A Chrome trace's events -> timeline()'s figures in ms (busy_ms,
     window_ms, idle_ms, busy_share, gaps as (ms, host op)), plus top: the
     n_top device ops with the most time, each (name, count, ms, share of
-    the device time), and kernels: each port kernel -> its device events
-    (of its function in _build.SYMBOLS). Raises when the trace holds no
-    device event."""
+    the device time), kernels: each port kernel -> its device events
+    (of its function in _build.SYMBOLS), and stages: the port's spans
+    (stages()). Raises when the trace holds no device event."""
     spans = [e for e in events if e.get("ph") == "X"]
 
     def intervals(cats):
@@ -161,7 +321,8 @@ def summarize(events, n_top: int = 10, n_gaps: int = 5) -> dict:
                 for name, (n, us) in top],
         "kernels": {k: sum(n for name, (n, _) in per_op.items()
                            if _runs(name, symbol))
-                    for k, symbol in _build.SYMBOLS.items()}}
+                    for k, symbol in _build.SYMBOLS.items()},
+        "stages": stages(events)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -178,6 +339,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     res = trace(args.out, args.batch, args.steps, args.device)
+    for line in stage_lines(stages(load_events(res[0]))):
+        print(line)
     print(f"trace written to {args.out}")
     return res
 

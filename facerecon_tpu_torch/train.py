@@ -53,6 +53,7 @@ from facerecon_tpu_torch.ops.render import render_coeffs
 from facerecon_tpu_torch.parallel import mesh
 from facerecon_tpu_torch.pipeline import (Pipeline, make_train_pipeline,
                                           regress_coeffs)
+from facerecon_tpu_torch.profile_trace import mark, recording, span
 from facerecon_tpu_torch.utils.bfm import load_npz, synthetic_bfm
 from facerecon_tpu_torch.utils.coeffs import split_coeff
 
@@ -106,6 +107,14 @@ def init_state(pipe: Pipeline, total_steps: int, seed: int = 0
     return TrainState(optimizer=opt, scheduler=sched)
 
 
+def _mark_coeff_grad(_grad):
+    """Gradient hook on the regressor's output, set while a profiler
+    records: the coefficients' gradient is complete, so the render's
+    backward has been launched and the CNN's is next (the mark
+    fr.coeff_grad, on the autograd engine's thread)."""
+    mark("fr.coeff_grad")
+
+
 def make_train_step(pipe: Pipeline, use_landmarks: bool = True):
     """(state, images, gt_lmk) -> per-term losses of the step (detached
     0-d tensors). Runs the forward in train mode (the BN running
@@ -114,18 +123,27 @@ def make_train_step(pipe: Pipeline, use_landmarks: bool = True):
     In a process group (parallel/mesh.py) images and gt_lmk are this
     rank's slice of the global batch: the gradients are all-reduced
     (mean) between the backward and the update, and the returned parts
-    are the all-reduced means."""
+    are the all-reduced means.
+
+    While a profiler records, the step's stages are spans of the trace
+    (profile_trace.span): fr.cnn, fr.render, fr.losses, fr.backward cut
+    by the mark fr.coeff_grad, fr.optimizer."""
     cfg, bfm = pipe.cfg, pipe.bfm
     params = list(pipe.model.parameters())
 
     def step(state: TrainState, images, gt_lmk) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        coeffs = split_coeff(regress_coeffs(pipe, images, train=True), cfg)
+        coeff_vec = regress_coeffs(pipe, images, train=True)
+        if recording():
+            coeff_vec.register_hook(_mark_coeff_grad)
+        coeffs = split_coeff(coeff_vec, cfg)
         out = render_coeffs(coeffs, bfm, cfg, background=images)
-        total, parts = total_loss(out, coeffs, images,
-                                  gt_lmk if use_landmarks else None, bfm,
-                                  cfg)
-        total.backward()
+        with span("fr.losses"):
+            total, parts = total_loss(out, coeffs, images,
+                                      gt_lmk if use_landmarks else None,
+                                      bfm, cfg)
+        with span("fr.backward"):
+            total.backward()
         parts = {k: v.detach() for k, v in parts.items()}
         if mesh.grouped():
             # every term is a mean over images (ops/losses.py), so on
@@ -134,8 +152,9 @@ def make_train_step(pipe: Pipeline, use_landmarks: bool = True):
             mesh.all_reduce_grads(params, "mean")
             vals = mesh.all_reduce(torch.stack(list(parts.values())))
             parts = dict(zip(parts, vals / mesh.world()))
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("fr.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         return parts
 

@@ -226,3 +226,79 @@ def test_busy_reading_fails_on_a_trace_without_device_events(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     with pytest.raises(ValueError, match="no device event"):
         chip_smoke._busy_ms(lambda: torch.ones(8, 8) @ torch.ones(8, 8))
+
+
+def test_summarize_reads_the_ports_stages():
+    """summarize's stages on hand-made events: a render span holding a
+    binning span, a backward whose launches come from another thread,
+    cut at the fr.coeff_grad mark there, and an optimizer span."""
+    def x(cat, name, ts, dur, tid=1, corr=None):
+        e = _event(cat, name, ts, dur)
+        e["tid"] = tid
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+    events = [
+        x("user_annotation", "fr.render", 0, 100),
+        x("user_annotation", "fr.binning", 40, 20),
+        x("cuda_runtime", "cudaLaunchKernel", 10, 2, corr=1),
+        x("kernel", "k1", 30, 10, tid=7, corr=1),
+        x("cuda_runtime", "cudaLaunchKernel", 45, 2, corr=2),
+        x("kernel", "k2", 50, 20, tid=7, corr=2),
+        x("user_annotation", "fr.backward", 100, 100),
+        x("cuda_runtime", "cudaLaunchKernel", 120, 2, tid=2, corr=3),
+        x("kernel", "k3", 130, 20, tid=7, corr=3),
+        x("user_annotation", "fr.coeff_grad", 160, 1, tid=2),
+        x("cuda_driver", "cuLaunchKernel", 170, 2, tid=2, corr=4),
+        x("kernel", "k4", 175, 20, tid=7, corr=4),
+        x("cuda_runtime", "cudaMemcpyAsync", 180, 2, tid=2, corr=5),
+        x("gpu_memcpy", "Memcpy DtoD", 196, 2, tid=7, corr=5),
+        x("user_annotation", "fr.optimizer", 200, 60),
+        x("cuda_runtime", "cudaLaunchKernel", 210, 2, corr=6),
+        x("kernel", "k6", 250, 5, tid=7, corr=6),
+        x("user_annotation", "reconstruct", 0, 300),
+    ]
+    st = PT.summarize(events)["stages"]
+    assert list(st) == ["fr.render", "fr.binning", "fr.backward",
+                        "fr.coeff_grad", "fr.optimizer",
+                        "fr.backward before fr.coeff_grad",
+                        "fr.backward after fr.coeff_grad"]
+    assert st["fr.render"] == {"count": 1, "host_ms": pytest.approx(0.1),
+                               "device_ms": pytest.approx(0.03),
+                               "launches": 2,
+                               "idle_ms": pytest.approx(0.07), "early": 0}
+    assert st["fr.binning"]["device_ms"] == pytest.approx(0.02)
+    # the other thread's launches, by interval; the copy is no launch
+    assert st["fr.backward"]["device_ms"] == pytest.approx(0.042)
+    assert st["fr.backward"]["launches"] == 2
+    assert st["fr.backward before fr.coeff_grad"]["device_ms"] == \
+        pytest.approx(0.02)
+    assert st["fr.backward after fr.coeff_grad"]["device_ms"] == \
+        pytest.approx(0.022)
+    assert st["fr.backward before fr.coeff_grad"]["host_ms"] == \
+        pytest.approx(0.06)
+    # idle [198,250] from the optimizer's start at 200; the window ends
+    # at the last device event, 255
+    assert st["fr.optimizer"]["idle_ms"] == pytest.approx(0.05)
+    lines = PT.stage_lines(st)
+    assert lines[0] == ("stage fr.render: 1 spans, host 0.100 ms, device "
+                        "0.030 ms, 2 launches, idle 0.070 ms")
+
+
+def test_main_prints_the_stages(tmp_path, monkeypatch, capsys, cfg):
+    """main's stage lines (before its last line), on the CPU: the render
+    and its stages, no device time and no idle reading."""
+    from facerecon_tpu_torch import config
+    monkeypatch.setattr(config, "default_config", lambda: cfg)
+    PT.main(["--out", str(tmp_path / "o"), "--batch", "1", "--steps", "2",
+             "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    stages = {ln.split(":")[0]: ln for ln in lines if ln.startswith("stage ")}
+    assert set(stages) == {"stage fr.render", "stage fr.geometry",
+                           "stage fr.records", "stage fr.binning"}
+    assert stages["stage fr.render"].startswith("stage fr.render: 2 spans,")
+    assert stages["stage fr.geometry"].startswith(
+        "stage fr.geometry: 4 spans,")
+    assert all(ln.endswith("device 0.000 ms, 0 launches, idle n/a")
+               for ln in stages.values())
+    assert lines[-1].startswith("trace written to")
