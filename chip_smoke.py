@@ -28,7 +28,14 @@ Phases (any failed check raises, and the script exits non-zero):
      columns and rows shares), printed beside the earlier group-based
      count and the tests the kernels issue
      (ops/rasterize.tests_issued); their bytes bounds what they must read
-     (the walked setup chunks, the winners' record sectors).
+     (the walked setup chunks, the winners' record sectors). Then the
+     binning kernels (csrc/binning.cu: bin_setup, bin_windows, through
+     ops/rasterize.band_windows) at the headline's shape (224 px, tile_h
+     4 x 7 columns, batch 128) and render512's (512 px, tile_h 2 x 8,
+     batch 32) on both row orders: Windows bit for bit the plain
+     version's, one launch of each a call; timed (ms a call, each
+     kernel's device ms) beside the plain version and the bytes bound
+     (the padded setup written, the vertices read).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch of a random-weight model (finite outputs,
      coverage, one K1 launch per call, agreement with the same float32
@@ -39,9 +46,10 @@ Phases (any failed check raises, and the script exits non-zero):
      initial state, zero head, folded, images from default_rng(0), batch
      256 in microbatches of 128, 1 + 10 x 8 passes) with the launch
      counters reset just before and read just after: one K1 launch a
-     call and nothing else, every coefficient 0; its first K1 call held
-     against the plain version, timed and bounded; its JSON line; its
-     stage split.
+     call and one of each binning kernel, nothing else, every
+     coefficient 0; its first K1 and binning calls held against their
+     plain versions, K1 timed and bounded; its JSON line; its stage
+     split.
   5. training main path: the BatchNorm ResNet-50 in bf16, 224 px, batch
      128, random images and landmarks: a stage split (the port's spans,
      the backward cut at fr.coeff_grad) and 10 steps on one
@@ -115,8 +123,8 @@ Phases (any failed check raises, and the script exits non-zero):
      as in phases 9-11.
  13. config 5's render at 512 px (bench.render512: tile_h 2 x 8
      columns, batch 256 in microbatches of 32, one K1 launch each, 1 + 5
-     passes), the first microbatch's K1 call held whole (all 32 images),
-     its JSON line, then K1's ms a launch.
+     passes), the first microbatch's K1 and binning calls held whole (all
+     32 images), its JSON line, then K1's ms a launch.
  14. the render-chain benchmark (render_bench, the twin of
      benchmarks/render_bench.py) through its own functions at batch 64:
      224 px (tile_h 2 x 7 columns) fwd and fwd+bwd, 512 px (tile_h 1 x 7
@@ -251,6 +259,9 @@ VIDEO_MAE = 0.03         # MJPG decode vs source, mean |err|
                          # (tests/test_real_input_drivers.py:115)
 R512_BATCH = 256         # config 5: 512-px render, bench.py's render512
 R512_MICRO = 32
+# the binning's shapes: (where, px, tile_h, columns, batch)
+BIN_RUNS = (("headline", 224, 4, 7, MICRO),
+            ("render512", 512, 2, 8, R512_MICRO))
 DP_BATCH = 32            # world-size-1 NCCL train step
 RENDER_REPS = 1          # render_bench: reps and inner lowered from the
 RENDER_INNER = 2         # reference's 3 and 8 to keep the script short
@@ -281,6 +292,17 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _launches(**counts) -> dict:
+    """A path's launch counts: the named kernels' counts, 0 for the rest,
+    and one launch of each binning kernel for each K1, K2 and K4 launch
+    (each rasterizes windows that ops/rasterize.band_windows binned for
+    it)."""
+    from facerecon_tpu_torch.ops import _build
+    want = dict.fromkeys(_build.KERNELS, 0) | counts
+    n = want["raster_shade"] + want["raster_select"] + want["raster_pos"]
+    return want | {"bin_setup": n, "bin_windows": n}
 
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
@@ -569,6 +591,22 @@ def _hold(name, got, ref, where) -> float:
         raise AssertionError(f"{name} tri_id differs from the plain "
                              f"version at {bad} pixels ({where})")
     return _raster_kernels()[name][2](got, ref, where)
+
+
+def _hold_windows(got, ref, where) -> float:
+    """The binning kernels' Windows against the plain version's, bit for
+    bit: the setup as int32 bits over every field and padded row, blo, bn
+    and cmask equal. Returns 0.0 (the max |err|)."""
+    pairs = [("setup", got.setup.view(torch.int32),
+              ref.setup.view(torch.int32))]
+    pairs += [(k, getattr(got, k), getattr(ref, k))
+              for k in ("blo", "bn", "cmask")]
+    for k, a, b in pairs:
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = int((a != b).sum()) if a.shape == b.shape else "all"
+            raise AssertionError(f"binning {k} differs from the plain "
+                                 f"version at {bad} elements ({where})")
+    return 0.0
 
 
 def _head(win, n: int):
@@ -914,8 +952,7 @@ def check_contract(cfg, assets):
     launches = dict(_build.LAUNCHES)
     print(f"contract path: {len(outs)} rasterize_batch calls, launches "
           f"{launches}")
-    if launches != dict(launches, raster_pos=len(outs), raster_shade=0,
-                        raster_select=0, select_grad=0, ctz_walk=0):
+    if launches != _launches(raster_pos=len(outs)):
         raise AssertionError("the contract path did not launch raster_pos "
                              "once per call (and nothing else)")
     ms = _time_ms(lambda: R.rasterize_batch(
@@ -1252,6 +1289,92 @@ def check_ctz_walk():
                 max_abs_err=0.0), launches
 
 
+def _bin_kernel_ms(run, reps: int) -> dict:
+    """Device ms a call of each binning kernel: reps calls of run() after
+    a warm-up, in one torch.profiler pass, the kernels matched by their
+    ops/_build.SYMBOLS."""
+    from torch.profiler import ProfilerActivity, profile
+    from facerecon_tpu_torch import profile_trace
+    from facerecon_tpu_torch.ops import _build
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    top = profile_trace.summarize(profile_trace.trace_events(prof),
+                                  n_top=100)["top"]
+    return {k: sum(ms for name, _, ms, _ in top
+                   if profile_trace._runs(name, _build.SYMBOLS[k])) / reps
+            for k in ("bin_setup", "bin_windows")}
+
+
+def check_binning(cfg, assets):
+    """The binning kernels (csrc/binning.cu, through
+    ops/rasterize.band_windows) against their plain version at each
+    BIN_RUNS shape (the headline's microbatch, render512's), on the
+    asset's raster row order and on a shuffled order: Windows bit for bit
+    (_hold_windows), one launch of each kernel a call and nothing else.
+    On the raster row order, timed: ms a call (CUDA events), each
+    kernel's device ms (one profiler pass), the plain version's ms, and
+    the bytes bound (the padded setup written, the vertices read).
+    Returns the kernels line's numbers at the headline's shape."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry, device_bfm
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    bfm = device_bfm(assets, DEVICE)
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(
+        bfm.faces.shape[0]), device=DEVICE)
+    orders = {"raster_rows": (bfm.raster_rows, bfm.raster_row_id),
+              "shuffled": (bfm.faces[perm], perm)}
+    result = {}
+    for where, size, tile_h, n_cols, batch in BIN_RUNS:
+        scfg = dataclasses.replace(cfg, image_size=size,
+                                   focal=cfg.focal * size / cfg.image_size,
+                                   tile_h=tile_h, raster_cols=n_cols)
+        c = split_coeff(torch.as_tensor(sample_coeffs(
+            np.random.default_rng(4), scfg, batch), device=DEVICE), scfg)
+        vndc = coeffs_to_geometry(c, bfm, scfg).verts_ndc
+        for order, (rows, rid) in orders.items():
+            args = (vndc, rows, rid, size, size, tile_h, n_cols)
+            _build.reset_launches()
+            got = R.band_windows(*args)
+            torch.cuda.synchronize()
+            if dict(_build.LAUNCHES) != _launches() | {"bin_setup": 1,
+                                                        "bin_windows": 1}:
+                raise AssertionError(f"binning ({where}, {order}) launched "
+                                     f"{dict(_build.LAUNCHES)}")
+            _hold_windows(got, R.band_windows_reference(*args),
+                          f"{where}, {order}")
+            bn_max = int(got.bn.max())
+            print(f"binning[{order}] {where}: batch {batch}, {size} px, "
+                  f"tile_h {tile_h} x {n_cols} columns, max bn {bn_max}: "
+                  f"Windows bit for bit the plain version's")
+            if order != "raster_rows":
+                continue
+            ms = _time_ms(lambda: R.band_windows(*args), 20)
+            plain_ms = _time_ms(lambda: R.band_windows_reference(*args),
+                                REPS)
+            split = _bin_kernel_ms(lambda: R.band_windows(*args), 20)
+            bound_ms, bound_by = _bound(_nbytes(got.setup, vndc), 0,
+                                        f"binning ({where})")
+            print(f"binning {where}: {ms:.4f} ms a call (bin_setup "
+                  f"{split['bin_setup']:.4f}, bin_windows "
+                  f"{split['bin_windows']:.4f} ms device), plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({100 * bound_ms / ms:.1f}% of it) on {_card_line()}")
+            if where == "headline":
+                result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, max_abs_err=0.0)
+        del vndc, got
+    del bfm, orders
+    torch.cuda.empty_cache()
+    return result
+
+
 def check_end_to_end(cfg, assets):
     """The inference main path: a checked small batch of the random-weight
     pipeline, a CPU float32 comparison, its stage split and its timed
@@ -1328,7 +1451,7 @@ def check_end_to_end(cfg, assets):
     # the main path: bench.headline, the reference's workload (the BN
     # model's initial state, zero head, folded; images from
     # default_rng(0)), counts from 0 just before and read just after
-    with _recording("shade_windows") as seen:
+    with _recording("shade_windows", "band_windows") as seen:
         _build.reset_launches()
         payload, (cv, means) = bench.headline(BATCH, MICRO, HEAD_REPS,
                                               HEAD_INNER_REPS, DEVICE)
@@ -1342,11 +1465,10 @@ def check_end_to_end(cfg, assets):
           f"{HEAD_INNER_REPS} timed passes after 1) on {_card_line()}")
     print(f"inference main path: {n_calls} reconstruct calls, launches "
           f"{launches}")
-    if launches != dict(launches, raster_shade=n_calls, raster_select=0,
-                        select_grad=0, raster_pos=0, ctz_walk=0):
+    if launches != _launches(raster_shade=n_calls):
         raise AssertionError("the inference main path did not launch "
-                             "raster_shade once per call (and nothing "
-                             "else)")
+                             "raster_shade and the binning kernels once "
+                             "per call (and nothing else)")
     if cv.any() or not bool(torch.isfinite(means).all()):
         raise AssertionError("headline: coefficients not all 0 (the "
                              "reference's zero head) or non-finite images")
@@ -1452,8 +1574,7 @@ def check_training(cfg, assets):
           f"steps after {TRAIN_CHUNK}) on {_card_line()}")
     print(f"training main path: {n_steps} steps, launches {launches}, last "
           f"loss {float(parts['total']):.5f}")
-    if launches != {"raster_shade": 0, "raster_select": n_steps,
-                    "select_grad": n_steps, "raster_pos": 0, "ctz_walk": 0}:
+    if launches != _launches(raster_select=n_steps, select_grad=n_steps):
         raise AssertionError(f"the training main path launched {launches}")
     if not bool(torch.isfinite(torch.stack(list(parts.values()))).all()):
         raise AssertionError(f"non-finite training loss {parts}")
@@ -1467,7 +1588,8 @@ def check_training(cfg, assets):
 _WRAPPERS = {"shade_windows": "raster_shade",
              "select_windows": "raster_select",
              "select_grad": "select_grad",
-             "pos_windows": "raster_pos"}
+             "pos_windows": "raster_pos",
+             "band_windows": "bin_setup"}
 
 
 def _copy(x):
@@ -1509,8 +1631,9 @@ def _hold_recorded(seen, where) -> dict:
     """Each recorded first call's kernel against its plain version on the
     same arguments: K1 tri_id exact, color and bary within 1e-6; K2
     tri_id, row and sel exactly equal; K3 within 1e-5 x max |ref| and
-    two launches bitwise equal; K4 tri_id, zbuf and row exactly equal.
-    Fails if a wrapper the recording was opened for was never called.
+    two launches bitwise equal; K4 tri_id, zbuf and row exactly equal;
+    the binning's Windows bit for bit (_hold_windows). Fails if a wrapper
+    the recording was opened for was never called.
     Returns kernel name -> max |err|; prints one line."""
     from facerecon_tpu_torch.ops import rasterize as R
     errs, parts = {}, []
@@ -1522,7 +1645,9 @@ def _hold_recorded(seen, where) -> dict:
         got = getattr(R, wrapper)(*args, **kw)
         ref = getattr(R, wrapper + "_reference")(*args, **kw)
         torch.cuda.synchronize()
-        if name == "select_grad":
+        if name == "bin_setup":
+            err = _hold_windows(got, ref, where)
+        elif name == "select_grad":
             err, scale = float((got - ref).abs().max()), float(
                 ref.abs().max())
             if not (scale > 0 and err <= 1e-5 * scale):
@@ -1535,10 +1660,13 @@ def _hold_recorded(seen, where) -> dict:
         else:
             err = _hold(name, got, ref, where)
         errs[name] = err
-        # the records (B, 24, rows), K3's cotangent (B, 20, H, W) or, for
-        # K4, which takes the windows alone, the setup (B, 16, rows)
-        shape = args[1].shape if len(args) > 1 else args[0].setup.shape
-        parts.append(f"{name} on {tuple(shape)} max|err| {err:.3g}")
+        # the records (B, 24, rows), K3's cotangent (B, 20, H, W), for
+        # K4, which takes the windows alone, the setup (B, 16, rows), and
+        # for the binning the vertices (B, N, 3)
+        shape = (args[0].shape if name == "bin_setup" else args[1].shape
+                 if len(args) > 1 else args[0].setup.shape)
+        label = "binning" if name == "bin_setup" else name
+        parts.append(f"{label} on {tuple(shape)} max|err| {err:.3g}")
         del got, ref
     print(f"{where}: the path's first call of each kernel held against "
           f"its plain version: " + ", ".join(parts))
@@ -1592,8 +1720,8 @@ def check_fit(cfg, assets, tmp):
           f"{FIT_DRIVER_STEPS} steps, final loss included) on {_card_line()}")
     print(f"fit losses: first {losses[0]:.5f} last {losses[-1]:.5f}; "
           f"launches {launches}")
-    want = {"raster_shade": 0, "raster_select": FIT_DRIVER_STEPS + 1,
-            "select_grad": FIT_DRIVER_STEPS, "raster_pos": 0, "ctz_walk": 0}
+    want = _launches(raster_select=FIT_DRIVER_STEPS + 1,
+                     select_grad=FIT_DRIVER_STEPS)
     if launches != want:
         raise AssertionError(f"the fit launched {launches}, not {want}")
     short = fit.make_fit_fn(cfg, 5, lr=5e-3)
@@ -1681,9 +1809,7 @@ def check_infer(cfg, assets, tmp):
             _build.reset_launches()
             rep = infer.run(infer.parse_args(argv))
             counts[mode] = dict(_build.LAUNCHES)
-        if counts[mode] != {"raster_shade": 1, "raster_select": 1,
-                            "select_grad": 0, "raster_pos": 0,
-                            "ctz_walk": 0}:
+        if counts[mode] != _launches(raster_shade=1, raster_select=1):
             raise AssertionError(f"infer ({mode}) launched {counts[mode]}")
         _hold_recorded(seen, f"infer ({mode}, {INFER_FACES} faces)")
         del seen
@@ -1788,8 +1914,7 @@ def check_train_driver(cfg, assets, tmp):
         _, lines = _run_train(base + ["--chunk", "2", "--steps", "4",
                                       "--ckpt-dir", ck], cfg2)
         launches = dict(_build.LAUNCHES)
-    if launches != {"raster_shade": 0, "raster_select": 4, "select_grad": 4,
-                    "raster_pos": 0, "ctz_walk": 0}:
+    if launches != _launches(raster_select=4, select_grad=4):
         raise AssertionError(f"the train driver launched {launches}")
     _hold_recorded(seen, f"train driver step 1 (batch {TRAIN_DIR_BATCH})")
     del seen
@@ -1951,8 +2076,8 @@ def _track(label, argv, want):
 
 
 def _track_launches(k1, steps):
-    return {"raster_shade": k1, "raster_select": steps + 1,
-            "select_grad": steps, "raster_pos": 0, "ctz_walk": 0}
+    return _launches(raster_shade=k1, raster_select=steps + 1,
+                     select_grad=steps)
 
 
 def check_track(cfg, assets, tmp):
@@ -2063,7 +2188,7 @@ def check_render512():
     from facerecon_tpu_torch import bench
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import rasterize as R
-    with _recording("shade_windows") as seen:
+    with _recording("shade_windows", "band_windows") as seen:
         _build.reset_launches()
         payload, means = bench.render512(R512_BATCH, R512_MICRO, REPS,
                                          device=DEVICE)
@@ -2071,8 +2196,7 @@ def check_render512():
         launches = dict(_build.LAUNCHES)
     print(json.dumps(payload))
     want = (1 + REPS) * (R512_BATCH // R512_MICRO)
-    if launches != {"raster_shade": want, "raster_select": 0,
-                    "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}:
+    if launches != _launches(raster_shade=want):
         raise AssertionError(f"render512 launched {launches}")
     if not bool(torch.isfinite(means).all()):
         raise AssertionError("render512: non-finite images")
@@ -2149,7 +2273,6 @@ def check_render_bench():
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import rasterize as R
     total = collections.Counter()
-    none = dict.fromkeys(_build.KERNELS, 0)
     batch = render_bench.parse_args([]).batch
     for size, bwd in RENDER_RUNS:
         t0 = time.perf_counter()
@@ -2170,7 +2293,7 @@ def check_render_bench():
             launches = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         n = (1 + 3 * RENDER_REPS) * RENDER_INNER
-        want = {**none, "raster_select": n, "select_grad": n if bwd else 0}
+        want = _launches(raster_select=n, select_grad=n if bwd else 0)
         if launches != want:
             raise AssertionError(f"{where} launched {launches}, not {want}")
         if not (np.isfinite(res["first_sum"]) and np.isfinite(res["sum"])):
@@ -2228,7 +2351,6 @@ def check_raster_bench():
     from facerecon_tpu_torch.ops import _build
     from facerecon_tpu_torch.ops import rasterize as R
     total = collections.Counter()
-    none = dict.fromkeys(_build.KERNELS, 0)
     args = raster_bench.parse_args([])
     vndc, faces = raster_bench.geometry(args.batch, DEVICE)
     s = args.size
@@ -2240,7 +2362,7 @@ def check_raster_bench():
             res = raster_bench.run(pos_fn, vndc, faces, args.reps)
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-        want = {**none, "raster_pos": 1 + 3 * args.reps}
+        want = _launches(raster_pos=1 + 3 * args.reps)
         if launches != want:
             raise AssertionError(f"{where} launched {launches}, not {want}")
         if res["chk"] != int(res["out"].sum()):
@@ -2272,7 +2394,7 @@ def check_raster_bench():
     _build.reset_launches()
     mismatch = raster_bench.check(vndc, faces, s)
     launches = dict(_build.LAUNCHES)
-    if mismatch != 0 or launches != {**none, "raster_pos": 1}:
+    if mismatch != 0 or launches != _launches(raster_pos=1):
         raise AssertionError(f"raster_bench --check: mismatch {mismatch}, "
                              f"launches {launches}")
     total.update(launches)
@@ -2431,8 +2553,7 @@ def check_entry():
         coeffs, image, lmk = fn(*args)
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
-    if launches != {"raster_shade": 0, "raster_select": 1, "select_grad": 0,
-                    "raster_pos": 0, "ctz_walk": 0}:
+    if launches != _launches(raster_select=1):
         raise AssertionError(f"entry() launched {launches}")
     if not (coeffs.shape == (8, 257) and image.shape == (8, 224, 224, 3)
             and lmk.shape == (8, 68, 2)):
@@ -2496,7 +2617,6 @@ def check_trace(cfg, assets, tmp):
     from facerecon_tpu_torch.pipeline import make_train_pipeline
     from facerecon_tpu_torch.train import init_state, make_train_step
     total = collections.Counter()
-    none = dict.fromkeys(_build.KERNELS, 0)
     defaults = profile_trace.parse_args([])
     steps = defaults.steps
     for batch in (defaults.batch, TRAIN_BATCH):
@@ -2513,13 +2633,13 @@ def check_trace(cfg, assets, tmp):
                                               cfg, assets)
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-        if launches != {**none, "raster_select": 1 + steps}:
+        if launches != _launches(raster_select=1 + steps):
             raise AssertionError(f"the twin at batch {batch} launched "
                                  f"{launches}")
         total.update(launches)
         _read_trace(f"the twin, batch {batch}, {steps} calls",
                     profile_trace.load_events(path),
-                    {"raster_select": steps})
+                    _launches(raster_select=steps))
         _hold_recorded(seen, f"the twin's warm-up call (batch {batch})")
         del seen
         torch.cuda.empty_cache()
@@ -2534,7 +2654,7 @@ def check_trace(cfg, assets, tmp):
             float(read(one()))
         launches = dict(_build.LAUNCHES)
         doubled = {k: 2 * n for k, n in want.items()}
-        if launches != {**none, **doubled}:
+        if launches != doubled:
             raise AssertionError(f"{where} launched {launches}, not "
                                  f"{doubled} (a warm-up and a traced run)")
         total.update(launches)
@@ -2545,7 +2665,7 @@ def check_trace(cfg, assets, tmp):
         MICRO, cfg.image_size)).to(DEVICE)
     traced(f"one headline microbatch of {MICRO}",
            lambda: bench.headline_pass(pipe, images, MICRO),
-           lambda out: out[1].sum(), {"raster_shade": 1})
+           lambda out: out[1].sum(), _launches(raster_shade=1))
     del pipe, images
     torch.cuda.empty_cache()
 
@@ -2556,7 +2676,7 @@ def check_trace(cfg, assets, tmp):
                    bench.train_inputs(1, TRAIN_BATCH, cfg.image_size))
     traced(f"one train step at batch {TRAIN_BATCH}",
            lambda: step(state, images, lmk), lambda parts: parts["total"],
-           {"raster_select": 1, "select_grad": 1})
+           _launches(raster_select=1, select_grad=1))
     del pipe, state, step, images, lmk
     torch.cuda.empty_cache()
     return {k: total[k] for k in _build.KERNELS}
@@ -2671,6 +2791,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
                                            rng)[0]
+    measured["binning"] = _timed("binning", check_binning, cfg, assets)
     check_wide_band(cfg, assets)
     _timed("band sweep", check_band_sweep, cfg, assets)
     launches = check_end_to_end(cfg, assets)
@@ -2703,7 +2824,10 @@ def main() -> int:
     launches.update(raster_select=train_launches["raster_select"],
                     select_grad=train_launches["select_grad"],
                     raster_pos=contract_launches["raster_pos"],
-                    ctz_walk=walk_launches["ctz_walk"])
+                    ctz_walk=walk_launches["ctz_walk"],
+                    binning=launches["bin_setup"]
+                    + train_launches["bin_setup"]
+                    + contract_launches["bin_setup"])
 
     # what each kernel replaces: the Pallas kernel body, file:line
     replaces = {
@@ -2711,7 +2835,8 @@ def main() -> int:
         "raster_select": "facerecon_tpu/ops/rasterize_pallas.py:133",
         "select_grad": "facerecon_tpu/ops/rasterize_pallas.py:1109",
         "raster_pos": "facerecon_tpu/ops/rasterize_pallas.py:133",
-        "ctz_walk": "benchmarks/ctzloop_probe.py:48"}
+        "ctz_walk": "benchmarks/ctzloop_probe.py:48",
+        "binning": "none (XLA-fused jnp: facerecon_tpu/ops/binning.py:228)"}
     kernels = [dict(
         name=name, route="cuda",
         source=f"facerecon_tpu_torch/csrc/{name}.cu",
@@ -2722,7 +2847,9 @@ def main() -> int:
     for phase, n in driver_launches.items():
         print(f"{phase} launches: raster_shade {n['raster_shade']}, "
               f"raster_select {n['raster_select']}, select_grad "
-              f"{n['select_grad']}, raster_pos {n['raster_pos']}")
+              f"{n['select_grad']}, raster_pos {n['raster_pos']}, "
+              f"bin_setup {n['bin_setup']}, bin_windows "
+              f"{n['bin_windows']}")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,11 +2,14 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, loaded with ctypes (no PyTorch
-headers, so a build takes seconds). Libraries go into `_build/` beside
-the package (listed in .gitignore), named by a hash of the source, every
-header in `csrc/` and the flags, so a checkout builds what it needs on
-its first call and reuses it afterwards, and an edited header rebuilds
-every kernel. A failed build raises: there is no fallback.
+headers, so a build takes seconds). A source may hold more than one
+kernel's C entry (`SOURCES`: the two binning kernels share
+`csrc/binning.cu`); it builds once for all of them. Libraries go into
+`_build/` beside the package (listed in .gitignore), named by a hash of
+the source, every header in `csrc/` and the flags, so a checkout builds
+what it needs on its first call and reuses it afterwards, and an edited
+header rebuilds every kernel. A failed build raises: there is no
+fallback.
 
 A variant build compiles the same source with macros defined
 (`defines`, passed to nvcc as -D<name>): the ablated raster kernels and
@@ -36,14 +39,19 @@ from pathlib import Path
 import torch
 
 KERNELS = ("raster_shade", "raster_select", "select_grad", "raster_pos",
-           "ctz_walk")
+           "ctz_walk", "bin_setup", "bin_windows")
+# the source, csrc/<source>.cu, of each kernel not in a file of its own
+# name
+SOURCES = {"bin_setup": "binning", "bin_windows": "binning"}
 # the device function each kernel's C entry launches exactly once a
 # launch (K3's last pass), as a profiler's trace names it
 SYMBOLS = {"raster_shade": "raster_shade_kernel",
            "raster_select": "raster_select_kernel",
            "select_grad": "sum_rows",
            "raster_pos": "raster_pos_kernel",
-           "ctz_walk": "ctz_walk_kernel"}
+           "ctz_walk": "ctz_walk_kernel",
+           "bin_setup": "bin_setup_kernel",
+           "bin_windows": "bin_windows_kernel"}
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -84,7 +92,16 @@ def macros(defines=()) -> tuple[str, ...]:
     return names
 
 
+def source(name: str) -> str:
+    """The stem of the source that holds kernel `name` (a source's own
+    stem gives itself)."""
+    return SOURCES.get(name, name)
+
+
 def library_path(name: str, defines=()) -> Path:
+    """The library of kernel (or source) `name`, the variant with
+    `defines` set."""
+    name = source(name)
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
@@ -96,13 +113,14 @@ def library_path(name: str, defines=()) -> Path:
 
 
 def build(names=KERNELS, defines=()) -> dict[str, str]:
-    """Compile every named kernel that has no current library, with the
-    macros `defines` set: one nvcc per source, all started together.
-    Returns each new build's compiler log (register and shared-memory use
-    from ptxas). Raises if any build fails."""
+    """Compile the source of every named kernel that has no current
+    library, with the macros `defines` set: one nvcc per source, all
+    started together. Returns each new build's compiler log by source
+    (register and shared-memory use from ptxas). Raises if any build
+    fails."""
     defines = macros(defines)
     procs = []
-    for name in names:
+    for name in dict.fromkeys(map(source, names)):
         out = library_path(name, defines)
         if out.exists():
             continue
@@ -128,9 +146,9 @@ def build(names=KERNELS, defines=()) -> dict[str, str]:
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:
-    """The kernel's shared library (the variant with `defines` set),
-    built first if needed."""
-    key = (name, macros(defines))
+    """The shared library of kernel `name`'s source (the variant with
+    `defines` set), built first if needed."""
+    key = (source(name), macros(defines))
     with _lock:
         lib = _libs.get(key)
         if lib is None:

@@ -12,6 +12,10 @@ Coverage is w0>=0 & w1>=0 & w0+w1<=1. Degenerate triangles get
 wc0 = wc1 = -3e38 so they never cover a pixel. Every value is computed
 with the same float32 operations in the same order as the reference, so
 the setup, windows and masks come out bit-identical.
+
+`bin_triangles_static_t` is the plain version of the binning kernels
+(csrc/binning.cu, launched by ops/rasterize.band_windows on CUDA
+tensors), which compute the same values op for op.
 """
 
 from __future__ import annotations

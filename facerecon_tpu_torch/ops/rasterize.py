@@ -8,10 +8,12 @@ set in its exact chunk mask (ops/binning.py). The z-test compares
 (depth, original face id) lexicographically, so the lowest-face-id tie
 rule holds under any row order.
 
-`band_windows` builds the kernels' inputs. Four kernels, each with a
-wrapper that launches it on CUDA tensors, runs its plain PyTorch version
-(`*_reference`, the same function) on CPU tensors, and counts launches in
-`_build.LAUNCHES`:
+Five wrappers, each of which launches its kernels on CUDA tensors, runs
+its plain PyTorch version (`*_reference`, the same function) on CPU
+tensors, and counts launches in `_build.LAUNCHES`:
+  - `band_windows` -> `csrc/binning.cu` (bin_setup, then bin_windows:
+    the setup, the band windows and the column masks, the raster
+    kernels' inputs; its plain version is ops/binning.py's);
   - `shade_windows` -> `csrc/raster_shade.cu` (K1, inference: z-test +
     in-kernel shading); `rasterize_shaded` chains binning and K1;
   - `select_windows` -> `csrc/raster_select.cu` (K2, training forward:
@@ -58,6 +60,7 @@ _GRAD = 17              # differentiable record fields
 _MICRO = 2              # a kernel lane's micro-tile: 2 x 2 pixels
 _COUNT_STEP = 8192      # (band, column, chunk) triples tests_issued takes
                         # at once
+_BIN_COLS = 32          # column tiles the window pass takes (a warp each)
 
 
 def padded_rows(n_faces: int) -> int:
@@ -90,7 +93,56 @@ def band_windows(verts_ndc, row_faces, row_id, height: int, width: int,
     _band_windows): per-band union windows, per-(band, column) exact
     chunk masks, and the padded field-major setup whose field 12 carries
     the ORIGINAL face id. Slack rows get wc0 = wc1 = -3e38, so they never
-    cover a pixel."""
+    cover a pixel.
+
+    verts_ndc (B, N, 3) f32; row_faces (F, 3) and row_id (F,) int64 on
+    the card. CPU tensors take the plain version
+    (band_windows_reference, any index type); CUDA tensors launch
+    `csrc/binning.cu`: the setup pass (bin_setup: the setup and each
+    chunk's box, kept in a (B, chunks, 4) scratch) and the window pass
+    (bin_windows: one warp a column tile, so n_cols <= 32), the same
+    Windows bit for bit."""
+    dev = verts_ndc.device
+    if not _build.on_card(dev):
+        return band_windows_reference(verts_ndc, row_faces, row_id, height,
+                                      width, tile_h, n_cols, cull_backfaces)
+    bsz, n_verts = verts_ndc.shape[:2]
+    f = row_faces.shape[0]
+    _build.check_tensors(dev, {
+        "verts_ndc": (verts_ndc, torch.float32, (bsz, n_verts, 3)),
+        "row_faces": (row_faces, torch.int64, (f, 3)),
+        "row_id": (row_id, torch.int64, (f,)),
+    })
+    if not 1 <= n_cols <= _BIN_COLS:
+        raise ValueError(f"the window pass takes 1 to {_BIN_COLS} column "
+                         f"tiles, got {n_cols}")
+    rows = padded_rows(f)
+    n_chunks = (f + _CHUNK - 1) // _CHUNK
+    n_bands = (height + tile_h - 1) // tile_h
+    setup = torch.empty((bsz, _ROW_PAD, rows), dtype=torch.float32,
+                        device=dev)
+    boxes = torch.empty((bsz, n_chunks, 4), dtype=torch.float32, device=dev)
+    blo = torch.empty((bsz, n_bands), dtype=torch.int32, device=dev)
+    bn = torch.empty_like(blo)
+    cmask = torch.empty((bsz, n_bands * n_cols * _MWORDS), dtype=torch.int32,
+                        device=dev)
+    if bsz:
+        _build.launch("bin_setup", dev,
+                      (verts_ndc, row_faces, row_id, setup, boxes),
+                      (bsz, n_verts, f, rows, height, width,
+                       int(cull_backfaces)))
+        _build.launch("bin_windows", dev, (boxes, blo, bn, cmask),
+                      (bsz, n_chunks, n_bands, tile_h, n_cols,
+                       col_width(width, n_cols)))
+    return Windows(blo=blo, bn=bn, cmask=cmask, setup=setup)
+
+
+def band_windows_reference(verts_ndc, row_faces, row_id, height: int,
+                           width: int, tile_h: int, n_cols: int,
+                           cull_backfaces: bool = False) -> Windows:
+    """Plain PyTorch version of band_windows (the binning kernels), on
+    any device: ops/binning.bin_triangles_static_t, then the setup padded
+    to padded_rows(F) rows with the face ids in field 12."""
     bsz = verts_ndc.shape[0]
     st = bin_triangles_static_t(verts_ndc, row_faces, height, width,
                                 tile_h, _CHUNK, cull_backfaces,

@@ -40,7 +40,15 @@ cull_backfaces. The probes' twins
 stem agree on the card (f32 within 1e-5 x max |ref|, bf16 within 2^-6 x
 max |ref|: each output rounded twice to bf16), the two pool forms differ
 as on the CPU, and the scatter-min on the card equals the CPU's; none
-of them launches a port kernel.
+of them launches a port kernel. The binning kernels (csrc/binning.cu,
+through band_windows) give the plain version's Windows bit for bit (the
+setup compared as int32 bits over every field and padded row) at every
+path's shape: 224 px with tile_h 4 x 7 columns at batch 128 and 1, 512
+px with tile_h 2 x 8 at batch 32, both on the raster row order and a
+shuffled one, and K4's identity order (tile_h 8 x one 224-px column)
+with and without cull_backfaces; also on dead, grid-snapped and
+off-screen faces; a call launches each once, and every path launches
+them once for each K1, K2 and K4 launch (_launches).
 """
 
 import dataclasses
@@ -73,6 +81,15 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches(**counts):
+    """A path's launch counts: the named kernels' counts, 0 for the rest,
+    and one launch of each binning kernel for each K1, K2 and K4 launch
+    (each rasterizes windows that band_windows binned for it)."""
+    want = dict.fromkeys(_build.KERNELS, 0) | counts
+    n = want["raster_shade"] + want["raster_select"] + want["raster_pos"]
+    return want | {"bin_setup": n, "bin_windows": n}
 
 
 def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
@@ -432,8 +449,7 @@ def test_train_step_on_card_matches_cpu(card):
                      {n: p.grad.cpu() for n, p in
                       pipe.model.named_parameters()}, launched))
     (p_card, g_card, l_card), (p_cpu, g_cpu, l_cpu) = runs
-    assert l_card == {"raster_shade": 0, "raster_select": 1,
-                      "select_grad": 1, "raster_pos": 0, "ctz_walk": 0}
+    assert l_card == _launches(raster_select=1, select_grad=1)
     assert not any(l_cpu.values())
     assert p_cpu["photo"] > 0.01
     for k, v in p_cpu.items():
@@ -472,8 +488,7 @@ def test_fit_step_on_card_matches_cpu(card):
         (grad,) = torch.autograd.grad(loss, coeff)
         runs.append((float(res.losses[0]), grad.cpu(), launched))
     (l_card, g_card, n_card), (l_cpu, g_cpu, n_cpu) = runs
-    assert n_card == {"raster_shade": 0, "raster_select": 2,
-                      "select_grad": 1, "raster_pos": 0, "ctz_walk": 0}
+    assert n_card == _launches(raster_select=2, select_grad=1)
     assert not any(n_cpu.values())
     assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
     scale = float(g_cpu.abs().max())
@@ -623,8 +638,7 @@ def test_joint_solve_first_kernel_calls_equal_plain(card, monkeypatch):
     _, losses = track.make_refine_fn(cfg, 3, 5e-3)(tp0, bfm, frames, lmk)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {"raster_shade": 0, "raster_select": 3,
-                        "select_grad": 3, "raster_pos": 0, "ctz_walk": 0}
+    assert launched == _launches(raster_select=3, select_grad=3)
     assert bool(torch.isfinite(losses).all())
     monkeypatch.undo()
     args, kw = seen["select_windows"]
@@ -662,7 +676,7 @@ def test_bench_modes_launch_their_kernels(card, mode):
         want = {"raster_shade": (1 + 2) * 2}
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {k: want.get(k, 0) for k in launched}
+    assert launched == _launches(**want)
     assert bool(torch.isfinite(out).all())
     assert list(payload) == ["metric", "value", "unit", "vs_baseline"]
     assert payload["value"] > 0 and payload["vs_baseline"] is None
@@ -686,8 +700,7 @@ def test_entry_launches_select_once(card, monkeypatch):
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     monkeypatch.undo()
-    assert launched == {"raster_shade": 0, "raster_select": 1,
-                        "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}
+    assert launched == _launches(raster_select=1)
     assert coeffs.shape == (8, 257)
     assert image.shape == (8, 224, 224, 3) and lmk.shape == (8, 68, 2)
     for t in (coeffs, image, lmk):
@@ -708,12 +721,9 @@ def test_trace_twin_holds_its_select_events(card, tmp_path):
     path, _ = profile_trace.trace(str(tmp_path), batch=2, steps=2,
                                   device=card, cfg=tiny_config())
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {"raster_shade": 0, "raster_select": 3,
-                        "select_grad": 0, "raster_pos": 0, "ctz_walk": 0}
+    assert launched == _launches(raster_select=3)
     s = profile_trace.summarize(profile_trace.load_events(path))
-    assert s["kernels"] == {"raster_shade": 0, "raster_select": 2,
-                            "select_grad": 0, "raster_pos": 0,
-                            "ctz_walk": 0}
+    assert s["kernels"] == _launches(raster_select=2)
     assert 0 < s["busy_share"] <= 1
 
 
@@ -750,8 +760,7 @@ def test_render_bench_select_at_512px_matches_plain(card, monkeypatch):
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     monkeypatch.undo()
-    assert launched == {"raster_shade": 0, "raster_select": 1,
-                        "select_grad": 1, "raster_pos": 0, "ctz_walk": 0}
+    assert launched == _launches(raster_select=1, select_grad=1)
     assert bool(torch.isfinite(s))
     a, kw = seen["select_windows"]
     assert kw["tile_h"] == 1 and kw["n_cols"] == 7 and kw["height"] == 512
@@ -815,7 +824,7 @@ def test_bench_twins_launch_their_kernels(card, monkeypatch, twin):
         assert np.isfinite(res["sum"])
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {k: want.get(k, 0) for k in launched}
+    assert launched == _launches(**want)
 
 
 def test_probe_stems_agree_on_card(card):
@@ -875,8 +884,7 @@ def test_ctz_unrolled_build_matches_plain_version(card, live):
     got = CTZ.walk(mask, setup, looped=False)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == {"raster_shade": 0, "raster_select": 0,
-                        "select_grad": 0, "raster_pos": 0, "ctz_walk": 1}
+    assert launched == _launches(ctz_walk=1)
     assert torch.equal(got, probes.ctz_walk_reference(mask, setup))
 
 
@@ -1000,3 +1008,142 @@ def test_raster_kernels_on_shuffled_turned_faces(card, cull):
                                      turned=True, cull=cull)
     ref = _hold_raster(win, rec, kw)
     assert float((ref[0][0] >= 0).float().mean()) > 0.1
+
+
+# --- the binning kernels (csrc/binning.cu) against their plain version ---
+
+@pytest.fixture(scope="module")
+def full_mesh():
+    """default_config()'s synthetic mesh (70,688 faces) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from facerecon_tpu_torch.config import default_config
+    cfg = default_config()
+    assets = synthetic_bfm(cfg, 0)
+    return cfg, device_bfm(assets, "cuda")
+
+
+def _full_verts(full_mesh, size, batch, seed=0):
+    """verts_ndc of sample_coeffs faces on the full mesh at `size` px
+    (focal scaled with it)."""
+    cfg, bfm = full_mesh
+    cfg = dataclasses.replace(cfg, image_size=size,
+                              focal=cfg.focal * size / cfg.image_size)
+    coeff = sample_coeffs(np.random.default_rng(seed), cfg, batch)
+    c = split_coeff(torch.as_tensor(coeff, device=bfm.faces.device), cfg)
+    return coeffs_to_geometry(c, bfm, cfg).verts_ndc
+
+
+def _hold_windows(vndc, rows, rid, size, tile_h, n_cols, cull=False):
+    """band_windows on the card: one launch of each binning kernel and
+    nothing else, and Windows bit for bit the plain version's (the setup
+    as int32 bits over all 16 fields and every padded row)."""
+    before = dict(_build.LAUNCHES)
+    got = R.band_windows(vndc, rows, rid, size, size, tile_h, n_cols, cull)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: int(k in ("bin_setup", "bin_windows"))
+                        for k in _build.KERNELS}
+    ref = R.band_windows_reference(vndc, rows, rid, size, size, tile_h,
+                                   n_cols, cull)
+    assert got.setup.shape == ref.setup.shape
+    assert torch.equal(got.setup.view(torch.int32),
+                       ref.setup.view(torch.int32))
+    for name in ("blo", "bn", "cmask"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    return got
+
+
+def _order(bfm, order):
+    if order == "raster_rows":
+        return bfm.raster_rows, bfm.raster_row_id
+    rid = torch.as_tensor(np.random.default_rng(3).permutation(
+        bfm.faces.shape[0]), device=bfm.faces.device)
+    return bfm.faces[rid], rid
+
+
+# path -> (size, tile_h, n_cols, batch): the inference and training
+# microbatch, render512's, and a single frame
+_BIN_SHAPES = {"infer224": (224, 4, 7, 128), "render512": (512, 2, 8, 32),
+               "frame224": (224, 4, 7, 1)}
+
+
+@pytest.mark.parametrize("order", ["raster_rows", "shuffled"])
+@pytest.mark.parametrize("path", list(_BIN_SHAPES))
+def test_binning_kernels_equal_plain_at_path_shapes(card, full_mesh, path,
+                                                    order):
+    """The binning kernels at each main path's shape, on the asset's
+    raster row order and on a shuffled order (windows past the 64-chunk
+    masks): Windows bit for bit the plain version's."""
+    size, tile_h, n_cols, batch = _BIN_SHAPES[path]
+    rows, rid = _order(full_mesh[1], order)
+    win = _hold_windows(_full_verts(full_mesh, size, batch), rows, rid,
+                        size, tile_h, n_cols)
+    assert bool((win.bn > 0).any()) and bool(win.cmask.any())
+    if order == "shuffled":
+        assert int(win.bn.max()) > 64
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["all", "cull"])
+def test_binning_kernels_equal_plain_in_identity_order(card, full_mesh,
+                                                       cull):
+    """K4's contract and raster_bench shape: the asset's face order as the
+    row order (row id = face id), tile_h 8 x one 224-px column, batch 64,
+    with and without cull_backfaces."""
+    faces = full_mesh[1].faces
+    rid = torch.arange(faces.shape[0], device=faces.device)
+    win = _hold_windows(_full_verts(full_mesh, 224, 64, seed=1), faces, rid,
+                        224, 8, 1, cull)
+    assert bool((win.bn > 0).any())
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["all", "cull"])
+def test_binning_kernels_on_degenerate_and_off_screen_faces(card, full_mesh,
+                                                            cull):
+    """Image 0 with 5,000 faces collapsed to a point or an edge (dead
+    rows), image 1 snapped to a 1/16 NDC grid (integer pixel corners on
+    band and column edges, and more dead rows), image 2 moved half off
+    the right edge, image 3 wholly off screen (nothing hits: every
+    window and mask 0): Windows bit for bit the plain version's."""
+    bfm = full_mesh[1]
+    vndc = _full_verts(full_mesh, 224, 4, seed=2).clone()
+    f = bfm.raster_rows[:5000]
+    vndc[0, f[:, 1]] = vndc[0, f[:, 0]]
+    vndc[1, :, :2] = torch.round(vndc[1, :, :2] * 16.0) / 16.0
+    vndc[2, :, 0] += 1.0
+    vndc[3, :, 0] += 10.0
+    win = _hold_windows(vndc, bfm.raster_rows, bfm.raster_row_id, 224, 4, 7,
+                        cull)
+    assert not bool(win.bn[3].any() or win.blo[3].any()
+                    or win.cmask[3].any())
+    assert bool((win.bn[:3] > 0).any(dim=1).all())
+    dead = win.setup[0, 2, :bfm.raster_rows.shape[0]] == np.float32(-3e38)
+    assert int(dead.sum()) > 1000
+
+
+@pytest.mark.parametrize("case", ["verts_f64", "faces_i32", "faces_cpu",
+                                  "strided_verts", "cols_33"])
+def test_binning_wrapper_rejects_what_the_kernels_do_not_take(card, case):
+    """band_windows on the card raises, launching nothing, on a wrong
+    dtype or device, a non-contiguous input, or more column tiles than
+    the window pass has warps (32)."""
+    cfg = tiny_config()
+    s = cfg.image_size
+    vndc = torch.zeros((1, 4, 3), device=card)
+    faces = torch.tensor([[0, 1, 2], [0, 2, 3]], device=card)
+    rid = torch.arange(2, device=card)
+    n_cols = cfg.raster_cols
+    if case == "verts_f64":
+        vndc = vndc.double()
+    elif case == "faces_i32":
+        faces = faces.int()
+    elif case == "faces_cpu":
+        faces = faces.cpu()
+    elif case == "strided_verts":
+        vndc = torch.zeros((1, 4, 6), device=card)[..., ::2]
+    else:
+        n_cols = 33
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        R.band_windows(vndc, faces, rid, s, s, cfg.tile_h, n_cols)
+    assert dict(_build.LAUNCHES) == before

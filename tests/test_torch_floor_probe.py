@@ -99,11 +99,13 @@ def test_real_mask_call_equals_plain_path(floor, mode):
 @pytest.mark.parametrize("name", _build.KERNELS)
 def test_library_path_by_defines(name):
     base = _build.library_path(name)
-    digest = hashlib.sha256((_build.CSRC / f"{name}.cu").read_bytes())
+    src = _build.source(name)          # the binning kernels share one
+    digest = hashlib.sha256((_build.CSRC / f"{src}.cu").read_bytes())
     for header in sorted(_build.CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(_build.NVCC_FLAGS).encode())
-    assert base.name == f"lib{name}-{digest.hexdigest()[:16]}.so"
+    assert base.name == f"lib{src}-{digest.hexdigest()[:16]}.so"
+    assert _build.library_path(src) == base
     assert _build.library_path(name, ()) == base
     ab = _build.library_path(name, ("RP_ABLATE_EVAL", "RP_ABLATE_DMA"))
     assert ab == _build.library_path(name, ("RP_ABLATE_DMA",

@@ -171,3 +171,98 @@ def test_wrapper_runs_plain_version_on_cpu(cfg, assets):
         TR.shade_windows(win, rec[:, :17], **kw)
     with pytest.raises(ValueError):
         TR.shade_windows(win._replace(cmask=win.cmask[:, ::2]), rec, **kw)
+
+
+def test_band_windows_on_cpu_is_the_plain_version(cfg, assets, monkeypatch):
+    """On CPU tensors band_windows is band_windows_reference bit for bit
+    and builds and launches nothing (any index type, as before)."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU call reached the kernel build")
+    monkeypatch.setattr(TR._build, "load", refuse)
+    monkeypatch.setattr(TR._build, "build", refuse)
+    _, tbfm, _, geom = _port_geom(cfg, assets, 12, batch=2)
+    h = w = cfg.image_size
+    before = dict(_build.LAUNCHES)
+    for rows, rid in ((tbfm.raster_rows, tbfm.raster_row_id),
+                      (torch.from_numpy(assets.raster_rows),
+                       torch.from_numpy(assets.raster_row_id))):
+        got = TR.band_windows(geom.verts_ndc, rows, rid, h, w, cfg.tile_h,
+                              cfg.raster_cols)
+        ref = TR.band_windows_reference(geom.verts_ndc, rows, rid, h, w,
+                                        cfg.tile_h, cfg.raster_cols)
+        assert torch.equal(got.setup.view(torch.int32),
+                           ref.setup.view(torch.int32))
+        for a, b in zip(got[:3], ref[:3]):
+            assert torch.equal(a, b)
+    assert dict(_build.LAUNCHES) == before
+
+
+def _bin_launches(monkeypatch):
+    """Pretend CPU tensors lie on the card and record band_windows'
+    launches (name, tensors, ints) instead of making them."""
+    launched = []
+    monkeypatch.setattr(TR._build, "on_card", lambda dev: True)
+    monkeypatch.setattr(TR._build, "launch",
+                        lambda name, dev, ptrs, ints:
+                        launched.append((name, ptrs, ints)))
+    return launched
+
+
+@pytest.mark.parametrize("size,tile_h,n_cols,cull", [
+    (224, 4, 7, False), (512, 2, 8, False), (224, 8, 1, True),
+    (224, 8, 1, False)], ids=["infer224", "render512", "k4_cull", "k4"])
+def test_band_windows_launches_the_two_passes(cfg, assets, monkeypatch,
+                                              size, tile_h, n_cols, cull):
+    """The card path of band_windows (up to _build.launch, no card
+    needed) at each path's shape: the setup pass, then the window pass,
+    once each, on the inputs as they are and outputs of Windows' layout
+    (setup (B, 16, padded_rows(F)), a (B, chunks, 4) box scratch passed
+    from the first to the second), with the shape's ints."""
+    _, tbfm, _, geom = _port_geom(cfg, assets, 12, batch=2)
+    vndc = geom.verts_ndc
+    rows, rid = tbfm.raster_rows, tbfm.raster_row_id
+    launched = _bin_launches(monkeypatch)
+    win = TR.band_windows(vndc, rows, rid, size, size, tile_h, n_cols, cull)
+    f = rows.shape[0]
+    n_chunks = (f + 127) // 128
+    n_bands = (size + tile_h - 1) // tile_h
+    assert [name for name, _, _ in launched] == ["bin_setup", "bin_windows"]
+    (_, sp, si), (_, wp, wi) = launched
+    assert sp[0] is vndc and sp[1] is rows and sp[2] is rid
+    assert sp[3] is win.setup and wp[0] is sp[4]
+    assert tuple(sp[4].shape) == (2, n_chunks, 4)
+    assert wp[1] is win.blo and wp[2] is win.bn and wp[3] is win.cmask
+    assert si == (2, vndc.shape[1], f, TR.padded_rows(f), size, size,
+                  int(cull))
+    assert wi == (2, n_chunks, n_bands, tile_h, n_cols,
+                  TR.col_width(size, n_cols))
+    TR._check_inputs(win, None, size, size, tile_h, n_cols)
+    assert win.setup.shape == (2, 16, TR.padded_rows(f))
+
+
+@pytest.mark.parametrize("case", ["verts_f64", "faces_i32", "row_id_i32",
+                                  "strided_verts", "faces_shape",
+                                  "cols_33", "cols_0"])
+def test_band_windows_rejects_what_the_kernels_do_not_take(
+        cfg, assets, monkeypatch, case):
+    """On the card path band_windows raises, launching nothing, on a
+    wrong dtype, shape or layout, or on more column tiles than the window
+    pass has warps (32)."""
+    _, tbfm, _, geom = _port_geom(cfg, assets, 12, batch=1)
+    args = dict(verts_ndc=geom.verts_ndc, row_faces=tbfm.raster_rows,
+                row_id=tbfm.raster_row_id, n_cols=cfg.raster_cols)
+    v = args["verts_ndc"]
+    args.update({
+        "verts_f64": dict(verts_ndc=v.double()),
+        "faces_i32": dict(row_faces=args["row_faces"].int()),
+        "row_id_i32": dict(row_id=args["row_id"].int()),
+        "strided_verts": dict(verts_ndc=torch.cat([v, v], 2)[..., ::2]),
+        "faces_shape": dict(row_faces=args["row_faces"][:, :2]),
+        "cols_33": dict(n_cols=33),
+        "cols_0": dict(n_cols=0)}[case])
+    launched = _bin_launches(monkeypatch)
+    s = cfg.image_size
+    with pytest.raises(ValueError):
+        TR.band_windows(args["verts_ndc"], args["row_faces"], args["row_id"],
+                        s, s, cfg.tile_h, args["n_cols"])
+    assert launched == []
