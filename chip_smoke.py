@@ -35,7 +35,20 @@ Phases (any failed check raises, and the script exits non-zero):
      batch 32) on both row orders: Windows bit for bit the plain
      version's, one launch of each a call; timed (ms a call, each
      kernel's device ms) beside the plain version and the bytes bound
-     (the padded setup written, the vertices read).
+     (the padded setup written, the vertices read). Then DECA's
+     textured kernel (csrc/raster_texture.cu) on the path of the
+     benchmark cell deca-render224.b512: its configuration's seeded
+     FLAME stand-ins, 256 codes (the cell's microbatch; the cell's
+     sampler, seed TEX_SEED) at 224 px, tile_h 4 x 7 columns, through
+     render_coeffs(inference=True) with the counters reset after a
+     warm-up call: one raster_texture launch and one of each binning
+     kernel a call, nothing else; the path's first textured call held
+     against texture_windows_reference (tri_id exact, colour and
+     barycentrics within 1e-6) and its binning bit for bit; then timed
+     (ms a launch beside the plain version's one call), and its bound
+     from the same codes (perfbench/work_flame.texture_work: the bytes
+     read and written once, the distinct albedo texels the covered
+     pixels' bilinear footprints read, and the tests the inputs need).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch of a random-weight model (finite outputs,
      coverage, one K1 launch per call, agreement with the same float32
@@ -270,6 +283,10 @@ RENDER_HOLD_IMAGES = 8   # K1 and K4 held at 512 px on the first 8 images
 PROBE_STEM_BF16 = 2.0 ** -6   # the stems in bf16: each output rounded twice
 PROBE_STEM_F32 = 1e-5         # (accumulator, then after the bias), x max
 PROBE_GATHER = 1e-6           # gather forms, card against CPU, x max |ref|
+TEX_CELL = "deca-render224.b512"   # DECA's textured kernel: the cell,
+TEX_BATCH = 256          # its microbatch,
+TEX_CALLS = 2            # the counted calls (the cell's unit)
+TEX_SEED = 22            # and the seed of the codes
 DEVICE = "cuda"
 
 
@@ -296,12 +313,13 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def _launches(**counts) -> dict:
     """A path's launch counts: the named kernels' counts, 0 for the rest,
-    and one launch of each binning kernel for each K1, K2 and K4 launch
-    (each rasterizes windows that ops/rasterize.band_windows binned for
-    it)."""
+    and one launch of each binning kernel for each K1, K2, K4 and textured
+    launch (each rasterizes windows that ops/rasterize.band_windows binned
+    for it)."""
     from facerecon_tpu_torch.ops import _build
     want = dict.fromkeys(_build.KERNELS, 0) | counts
-    n = want["raster_shade"] + want["raster_select"] + want["raster_pos"]
+    n = (want["raster_shade"] + want["raster_select"] + want["raster_pos"]
+         + want["raster_texture"])
     return want | {"bin_setup": n, "bin_windows": n}
 
 
@@ -1373,6 +1391,80 @@ def check_binning(cfg, assets):
     del bfm, orders
     torch.cuda.empty_cache()
     return result
+
+
+def check_texture():
+    """DECA's textured kernel on the path of TEX_CELL (the docstring's
+    phase 3). Returns the kernels line's numbers and the path's launch
+    counts."""
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import flame as FL
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.render import render_coeffs
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    from facerecon_tpu_torch.utils.flame import flame_assets
+    from perfbench import spec, work_flame
+    from perfbench.kinds import flame_render as FR
+    from perfbench.reference import deca
+    cfgf = spec.cell(TEX_CELL)["config_file"]
+    cfg = FR.port_config(cfgf, TEX_BATCH)
+    arrays = FR.arrays(cfgf)
+    dfl = FL.device_flame(flame_assets(arrays, cfg.image_size), DEVICE,
+                          cfg.n_tex, cfg.uv_size)
+    codes = torch.from_numpy(FR.sample_codes(np.random.default_rng(
+        TEX_SEED), cfgf["sizes"], TEX_BATCH)).to(DEVICE)
+    with _recording("texture_windows", "band_windows") as seen, \
+            torch.no_grad():
+        render_coeffs(split_coeff(codes, cfg), dfl, cfg, inference=True)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for _ in range(TEX_CALLS):
+            render_coeffs(split_coeff(codes, cfg), dfl, cfg, inference=True)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    if launches != _launches(raster_texture=TEX_CALLS):
+        raise AssertionError(f"the textured render launched {launches} in "
+                             f"{TEX_CALLS} calls")
+    args, kw = seen["texture_windows"]
+    bargs, bkw = seen["band_windows"]
+    _hold_windows(R.band_windows(*bargs, **bkw),
+                  R.band_windows_reference(*bargs, **bkw), "textured path")
+    got = R.texture_windows(*args, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = R.texture_windows_reference(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(got[0], ref[0]):
+        bad = int((got[0] != ref[0]).sum())
+        raise AssertionError(f"raster_texture tri_id differs from the plain "
+                             f"version at {bad} pixels")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))
+    if not err <= 1e-6:
+        raise AssertionError(f"raster_texture colour/bary differ from the "
+                             f"plain version by {err}")
+    cover = float((got[0] >= 0).float().mean())
+    if not cover > 0.3:
+        raise AssertionError(f"raster_texture covers {cover} of the pixels")
+    del got, ref
+    ms = _time_ms(lambda: R.texture_windows(*args, **kw), reps=20)
+    with torch.no_grad():
+        n_bytes, n_ops = work_flame.texture_work(
+            codes, deca.flame_on(arrays, DEVICE), cfg.image_size,
+            cfg.uv_size)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, "raster_texture")
+    print(f"raster_texture[{TEX_CELL}] batch={TEX_BATCH} "
+          f"{cfg.image_size} px tile_h {cfg.tile_h} x {cfg.raster_cols} "
+          f"columns coverage={cover:.4f} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.2f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+          f"max|err|={err:.3g} (tri_id exact, binning bit for bit); "
+          f"launches in {TEX_CALLS} calls {launches} on {_card_line()}")
+    del seen, args, bargs, dfl, codes
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err), launches
 
 
 def check_end_to_end(cfg, assets):
@@ -2792,6 +2884,8 @@ def main() -> int:
     measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
                                            rng)[0]
     measured["binning"] = _timed("binning", check_binning, cfg, assets)
+    measured["raster_texture"], texture_launches = _timed(
+        "texture", check_texture)
     check_wide_band(cfg, assets)
     _timed("band sweep", check_band_sweep, cfg, assets)
     launches = check_end_to_end(cfg, assets)
@@ -2825,9 +2919,11 @@ def main() -> int:
                     select_grad=train_launches["select_grad"],
                     raster_pos=contract_launches["raster_pos"],
                     ctz_walk=walk_launches["ctz_walk"],
+                    raster_texture=texture_launches["raster_texture"],
                     binning=launches["bin_setup"]
                     + train_launches["bin_setup"]
-                    + contract_launches["bin_setup"])
+                    + contract_launches["bin_setup"]
+                    + texture_launches["bin_setup"])
 
     # what each kernel replaces: the Pallas kernel body, file:line
     replaces = {
@@ -2836,6 +2932,7 @@ def main() -> int:
         "select_grad": "facerecon_tpu/ops/rasterize_pallas.py:1109",
         "raster_pos": "facerecon_tpu/ops/rasterize_pallas.py:133",
         "ctz_walk": "benchmarks/ctzloop_probe.py:48",
+        "raster_texture": "none (the JAX package has no DECA/FLAME path)",
         "binning": "none (XLA-fused jnp: facerecon_tpu/ops/binning.py:228)"}
     kernels = [dict(
         name=name, route="cuda",

@@ -6,6 +6,17 @@ Deep3DFace-family convention pinned in SURVEY.md §9 (coeff layout
 [id 80 | exp 64 | tex 80 | angles 3 | gamma 27 | t 3] = 257; camera f=1015,
 c=10 for a 224x224 plane).
 
+`model` picks the face model: "bfm" (the default, Deng et al.'s Basel
+Face Model layout) or "flame" (DECA's coarse model on FLAME,
+arXiv:2012.04012: codes [shape 100 | tex 50 | exp 50 | pose 6 | cam 3 |
+light 27] = 236, a 256^2 UV albedo, an orthographic camera, and a
+two-layer regressor head of `head_hidden` units). `deca_config` gives
+DECA's published sizes; the FLAME-only fields are read only when
+model == "flame", so every BFM default is unchanged. DECA's pose, camera
+and light groups have one layout only (DECA_FIXED), so they are no
+fields. `is_flame` reads the model of any config, the JAX package's
+included (which has no `model` and is a BFM config).
+
 The Pallas TPU kernel's lane/window constants (_CHUNK, _WINDOW, _COL_W, the
 head/mid DMA split) are HARDWARE-LAYOUT constants, not workload knobs: they
 encode the v5e vreg geometry (128 lanes, 8 sublanes) and measured DMA
@@ -19,9 +30,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+# DECA's pose (global rotation | jaw, axis-angle), cam (orthographic s,
+# tx, ty) and light (SH-9 x RGB, coefficient-major) groups: the one
+# layout its code has (utils/coeffs.DECACodes)
+DECA_FIXED = (6, 3, 27)
+
 
 @dataclasses.dataclass(frozen=True)
 class FaceReconConfig:
+    # --- face model: "bfm" or "flame" (DECA's coarse model) ---
+    model: str = "bfm"
+
     # --- coefficient layout (SURVEY.md §9, total 257 by default) ---
     n_id: int = 80
     n_exp: int = 64
@@ -29,6 +48,12 @@ class FaceReconConfig:
     n_angles: int = 3
     n_gamma: int = 27  # 9 SH coeffs per RGB channel
     n_trans: int = 3
+
+    # --- DECA's code layout on FLAME (model == "flame"; n_tex and n_exp
+    # above are DECA's 50 and 50 there, then pose, cam and light) ---
+    n_shape: int = 100
+    uv_size: int = 256     # albedo texels a side after the downsample
+    head_hidden: int = 1024  # the regressor head's hidden layer
 
     # --- mesh dims (configurable; full BFM09: 53490, cropped: 35709) ---
     n_vertices: int = 35709
@@ -81,16 +106,28 @@ class FaceReconConfig:
     train_steps: int = 200_000
     checkpoint_every: int = 5_000
 
+    def __post_init__(self):
+        if self.model not in ("bfm", "flame"):
+            raise ValueError(f"unknown face model {self.model!r}: "
+                             "expected 'bfm' or 'flame'")
+
+    @property
+    def coeff_sizes(self) -> Tuple[int, ...]:
+        """The code's groups in order: [id | exp | tex | angles | gamma |
+        t] for BFM, [shape | tex | exp | pose | cam | light] for FLAME."""
+        if is_flame(self):
+            return (self.n_shape, self.n_tex, self.n_exp, *DECA_FIXED)
+        return (self.n_id, self.n_exp, self.n_tex, self.n_angles,
+                self.n_gamma, self.n_trans)
+
     @property
     def n_coeff(self) -> int:
-        return (self.n_id + self.n_exp + self.n_tex + self.n_angles
-                + self.n_gamma + self.n_trans)
+        return sum(self.coeff_sizes)
 
     @property
     def coeff_split(self) -> Tuple[int, ...]:
         """Cumulative split points for jnp.split over the coeff axis."""
-        sizes = (self.n_id, self.n_exp, self.n_tex, self.n_angles,
-                 self.n_gamma)
+        sizes = self.coeff_sizes[:-1]
         out, acc = [], 0
         for s in sizes:
             acc += s
@@ -102,8 +139,24 @@ class FaceReconConfig:
         return self.image_size / 2.0
 
 
+def is_flame(cfg) -> bool:
+    """Whether cfg is a FLAME (DECA) config; the JAX package's config,
+    which the port's tests pass, has no `model` and is a BFM one."""
+    return getattr(cfg, "model", "bfm") == "flame"
+
+
 def default_config(**overrides) -> FaceReconConfig:
     return FaceReconConfig(**overrides)
+
+
+def deca_config(**overrides) -> FaceReconConfig:
+    """DECA's coarse model on FLAME at its published sizes (5,023
+    vertices, 9,976 faces, 68 landmarks, 236 codes, a 256^2 albedo, 224
+    px), with the BFM render's 4-row bands x 7 column tiles."""
+    base = dict(model="flame", n_tex=50, n_exp=50, n_vertices=5023,
+                n_faces=9976, image_size=224, tile_h=4, raster_cols=7)
+    base.update(overrides)
+    return FaceReconConfig(**base)
 
 
 def tiny_config(**overrides) -> FaceReconConfig:

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from facerecon_tpu_torch.config import FaceReconConfig
+from facerecon_tpu_torch.config import FaceReconConfig, is_flame
 
 STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 # random head weights give coefficients of ~0.15 std on random images:
@@ -78,7 +78,7 @@ class FusedResNetRegressor(nn.Module):
 
     def __init__(self, n_coeff: int,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 width: int = 64, dtype=torch.bfloat16):
+                 width: int = 64, dtype=torch.bfloat16, hidden: int = 0):
         super().__init__()
         self.dtype = dtype
         self.stem = nn.Conv2d(12, width, 4, bias=True, dtype=dtype)
@@ -90,7 +90,10 @@ class FusedResNetRegressor(nn.Module):
                                               strides, dtype))
                 in_ch = width * 2 ** i * 4
         self.blocks = nn.ModuleList(blocks)
-        self.head = nn.Linear(in_ch, n_coeff, dtype=torch.float32)
+        # DECA's two-layer head (hidden > 0): Linear, ReLU, Linear, float32
+        self.head_hidden = (nn.Linear(in_ch, hidden, dtype=torch.float32)
+                            if hidden else None)
+        self.head = nn.Linear(hidden or in_ch, n_coeff, dtype=torch.float32)
 
     def forward(self, images):
         """images (B,H,W,3) float32 in [0,1] -> coeffs (B,n_coeff) f32."""
@@ -107,12 +110,15 @@ class FusedResNetRegressor(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         x = x.mean(dim=(2, 3)).to(torch.float32)
+        if self.head_hidden is not None:
+            x = F.relu(self.head_hidden(x))
         return self.head(x)
 
     @torch.no_grad()
     def reset_parameters_(self, generator: torch.Generator):
         """Random weights from `generator` (a CPU generator): LeCun-normal
-        convs with zero biases, and a head scaled down by _HEAD_STD."""
+        convs and hidden layer with zero biases, and a head scaled down by
+        _HEAD_STD."""
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 fan_in = mod.weight[0].numel()
@@ -126,7 +132,8 @@ class FusedResNetRegressor(nn.Module):
 def build_fused_model(cfg: FaceReconConfig, depth: int = 50,
                       dtype=torch.bfloat16) -> FusedResNetRegressor:
     return FusedResNetRegressor(n_coeff=cfg.n_coeff,
-                                stage_sizes=STAGES[depth], dtype=dtype)
+                                stage_sizes=STAGES[depth], dtype=dtype,
+                                hidden=cfg.head_hidden if is_flame(cfg) else 0)
 
 
 # --- numpy fold of the BN model's variables (flax layout) ---
@@ -228,6 +235,9 @@ def fold_bn_model(model) -> "OrderedDict[str, torch.Tensor]":
             pairs.append(("proj", blk.proj, blk.proj_bn))
         for name, conv, bn in pairs:
             put(f"blocks.{i}.{name}", *_fold_conv(conv, bn))
-    put("head", model.head.weight.detach().cpu().to(torch.float32).numpy(),
-        model.head.bias.detach().cpu().to(torch.float32).numpy())
+    heads = ([("head_hidden", model.head_hidden)]
+             if model.head_hidden is not None else [])
+    for name, lin in heads + [("head", model.head)]:
+        put(name, lin.weight.detach().cpu().to(torch.float32).numpy(),
+            lin.bias.detach().cpu().to(torch.float32).numpy())
     return out

@@ -13,7 +13,11 @@ concatenated coefficient vector:
   - flax's SAME padding (asymmetric at stride 2) is explicit, as in
     models/fused.py;
   - the head is zero-initialised, so an untrained net predicts the mean
-    face (all-zero coefficients), the stable self-supervised start.
+    face (all-zero coefficients), the stable self-supervised start;
+  - `hidden` > 0 puts a float32 hidden layer and a ReLU before the head
+    (DECA's encoder: Linear(2048, 1024), ReLU, Linear(1024, 236)). The
+    backbone keeps flax's SAME padding, where DECA's torchvision ResNet-50
+    pads symmetrically (3 for the 7x7 stem, 1 for the 3x3s and the pool).
 
 The public input is NHWC (B, H, W, 3) float32 in [0,1], as in the
 reference. Carry the reference's variables over with
@@ -29,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from facerecon_tpu_torch.config import FaceReconConfig
+from facerecon_tpu_torch.config import FaceReconConfig, is_flame
 from facerecon_tpu_torch.models.fused import STAGES, _same_pads
 from facerecon_tpu_torch.parallel import mesh
 
@@ -135,7 +139,7 @@ class ResNetRegressor(nn.Module):
 
     def __init__(self, n_coeff: int,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 width: int = 64, dtype=torch.bfloat16):
+                 width: int = 64, dtype=torch.bfloat16, hidden: int = 0):
         super().__init__()
         self.dtype = dtype
         self.stage_sizes, self.width = tuple(stage_sizes), width
@@ -149,7 +153,8 @@ class ResNetRegressor(nn.Module):
                                               strides))
                 in_ch = width * 2 ** i * 4
         self.blocks = nn.ModuleList(blocks)
-        self.head = nn.Linear(in_ch, n_coeff)
+        self.head_hidden = nn.Linear(in_ch, hidden) if hidden else None
+        self.head = nn.Linear(hidden or in_ch, n_coeff)
         nn.init.zeros_(self.head.weight)
         nn.init.zeros_(self.head.bias)
 
@@ -164,22 +169,26 @@ class ResNetRegressor(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         x = x.mean(dim=(2, 3)).to(torch.float32)
+        if self.head_hidden is not None:
+            x = F.relu(self.head_hidden(x))
         return self.head(x)
 
     @torch.no_grad()
     def reset_parameters_(self, generator: torch.Generator):
         """The reference's initialisation from `generator` (a CPU
-        generator): LeCun-normal (truncated at 2 std) convs, unit BN
-        scales (zero for each block's last BN), zero biases and head,
-        unit running statistics."""
+        generator): LeCun-normal (truncated at 2 std) convs and hidden
+        layer, unit BN scales (zero for each block's last BN), zero
+        biases and head, unit running statistics."""
         for mod in self.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, nn.Conv2d) or mod is self.head_hidden:
                 fan_in = mod.weight[0].numel()
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
                 w = torch.empty(mod.weight.shape)
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
                 mod.weight.copy_(w)
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, BatchNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -195,4 +204,5 @@ class ResNetRegressor(nn.Module):
 def build_model(cfg: FaceReconConfig, depth: int = 50,
                 dtype=torch.bfloat16) -> ResNetRegressor:
     return ResNetRegressor(n_coeff=cfg.n_coeff, stage_sizes=STAGES[depth],
-                           dtype=dtype)
+                           dtype=dtype,
+                           hidden=cfg.head_hidden if is_flame(cfg) else 0)

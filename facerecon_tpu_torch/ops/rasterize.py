@@ -8,7 +8,7 @@ set in its exact chunk mask (ops/binning.py). The z-test compares
 (depth, original face id) lexicographically, so the lowest-face-id tie
 rule holds under any row order.
 
-Five wrappers, each of which launches its kernels on CUDA tensors, runs
+Six wrappers, each of which launches its kernels on CUDA tensors, runs
 its plain PyTorch version (`*_reference`, the same function) on CPU
 tensors, and counts launches in `_build.LAUNCHES`:
   - `band_windows` -> `csrc/binning.cu` (bin_setup, then bin_windows:
@@ -22,9 +22,14 @@ tensors, and counts launches in `_build.LAUNCHES`:
     row, the sum of its pixels' cotangent, by a counting sort of the
     winner rows);
   - `pos_windows` -> `csrc/raster_pos.cu` (K4, the z-test alone: winner
-    face id, depth and raster row).
-K1, K2 and K4 share one micro-tiled z-test and block skeleton
-(`csrc/raster_common.cuh`) and take one launch shape (`_raster_ints`):
+    face id, depth and raster row);
+  - `texture_windows` -> `csrc/raster_texture.cu` (DECA's textured
+    shade: K1's z-test, then SH-9 of the winner's interpolated world
+    normal times a bilinear fetch of the image's UV albedo);
+    `rasterize_textured` chains binning and it.
+K1, K2, K4 and the textured shade share one micro-tiled z-test and block
+skeleton (`csrc/raster_common.cuh`) and take one launch shape
+(`_raster_ints`):
 a block of 128 threads for each (column tile, band, image), for a band
 of any size; a block walks its tile in pixel groups (`pixel_group`),
 drops, per group, only triangles that cover none of the group's pixel
@@ -266,6 +271,50 @@ def pos_windows(win: Windows, *, height: int, width: int, tile_h: int,
                       _raster_ints(win, height, width, tile_h, n_cols,
                                    n_faces))
     return tri_id, zbuf, row
+
+
+def _check_texture(win: Windows, albedo, light, sh_factor):
+    bsz = win.setup.shape[0]
+    size = albedo.shape[1]
+    _build.check_tensors(win.setup.device, {
+        "albedo": (albedo, torch.float32, (bsz, size, size, 3)),
+        "light": (light, torch.float32, (bsz, 9, 3)),
+        "sh_factor": (sh_factor, torch.float32, (9,)),
+    })
+
+
+def texture_windows(win: Windows, records, albedo, light, sh_factor, *,
+                    height: int, width: int, tile_h: int, n_cols: int,
+                    n_faces: int):
+    """Rasterize + DECA's textured shade from prepared windows: the
+    textured kernel's wrapper.
+
+    records (B, 24, rows) f32 in raster row order
+    (render.pack_texture_records: world-normal corners 0..8, affine forms
+    9..14, anchor 15..16, UV corners 17..22 in grid_sample coordinates);
+    albedo (B, S, S, 3) f32 RGB; light (B, 9, 3) f32, DECA's SH
+    coefficients; sh_factor (9,) DECA's constant factors. Returns (tri_id
+    (B,H,W) int32, color (B,H,W,3) f32 = bilinear albedo x SH shading,
+    zero on background, bary (B,H,W,3) f32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    _check_inputs(win, records, height, width, tile_h, n_cols)
+    _check_texture(win, albedo, light, sh_factor)
+    if not _build.on_card(records.device):
+        return texture_windows_reference(
+            win, records, albedo, light, sh_factor, height=height,
+            width=width, tile_h=tile_h, n_cols=n_cols, n_faces=n_faces)
+    bsz, dev = records.shape[0], records.device
+    tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
+    color = torch.empty((bsz, height, width, 3), dtype=torch.float32,
+                        device=dev)
+    bary = torch.empty_like(color)
+    if bsz:
+        _build.launch("raster_texture", dev,
+                      (win.setup, records, win.blo, win.bn, win.cmask,
+                       albedo, light, sh_factor, tri_id, color, bary),
+                      (*_raster_ints(win, height, width, tile_h, n_cols,
+                                     n_faces), albedo.shape[1]))
+    return tri_id, color, bary
 
 
 def pixel_group(tile_h: int, col_w: int) -> tuple[int, int]:
@@ -591,6 +640,78 @@ def pos_windows_reference(win: Windows, *, height: int, width: int,
     return tuple(_unband(a, height, width, tile_h) for a in (tri, zbuf, row))
 
 
+def bilinear_zeros(tex, gx, gy):
+    """F.grid_sample(bilinear, zeros padding, align_corners=False) of one
+    image's texture tex (S, S, C) at grid coordinates gx, gy (P,), with
+    PyTorch's float32 ops in its order: the corner weights from the
+    unnormalised position, then nw, ne, sw, se added to 0 in that order,
+    a corner outside the texture adding nothing. Returns (P, C)."""
+    size = tex.shape[0]
+    flat = tex.reshape(size * size, -1)
+    ix = ((gx + 1.0) * size - 1.0) / 2.0
+    iy = ((gy + 1.0) * size - 1.0) / 2.0
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    x1, y1 = x0 + 1.0, y0 + 1.0
+    acc = torch.zeros((gx.shape[0], flat.shape[1]), device=tex.device)
+    for xs, ys, wgt in ((x0, y0, (x1 - ix) * (y1 - iy)),
+                        (x1, y0, (ix - x0) * (y1 - iy)),
+                        (x0, y1, (x1 - ix) * (iy - y0)),
+                        (x1, y1, (ix - x0) * (iy - y0))):
+        inb = (xs >= 0) & (xs < size) & (ys >= 0) & (ys < size)
+        at = (ys.clamp(0, size - 1) * size + xs.clamp(0, size - 1)).to(
+            torch.int64)
+        acc = acc + torch.where(inb[:, None], flat[at] * wgt[:, None], 0.0)
+    return acc
+
+
+def texture_windows_reference(win: Windows, records, albedo, light,
+                              sh_factor, *, height: int, width: int,
+                              tile_h: int, n_cols: int, n_faces: int):
+    """Plain PyTorch version of the textured kernel, on the same inputs:
+    the plain z-test (_band_winners), then the winner's barycentrics,
+    world normal and UV, SH-9 shading (DECA's basis [1, x, y, z, xy, xz,
+    yz, x^2 - y^2, 3z^2 - 1] times sh_factor, dotted with the light in
+    order) and the bilinear albedo (bilinear_zeros), with the kernel's
+    float ops in its order."""
+    bsz = win.setup.shape[0]
+    dev = win.setup.device
+    n_bands = (height + tile_h - 1) // tile_h
+    band_px = tile_h * col_width(width, n_cols) * n_cols
+    tri = torch.full((bsz, n_bands, band_px), -1, dtype=torch.int32,
+                     device=dev)
+    color = torch.zeros((bsz, n_bands, band_px, 3), device=dev)
+    bary = torch.zeros_like(color)
+    for b, t, hit, ids, best_row, _, px, py in _band_winners(
+            win, height, width, tile_h, n_cols, n_faces):
+        rec = records[b, :23, best_row]                # (23, band_px)
+        qx = px - rec[15]
+        qy = py - rec[16]
+        w0 = rec[9] * qx + rec[10] * qy + rec[11]
+        w1 = rec[12] * qx + rec[13] * qy + rec[14]
+        w2 = 1.0 - w0 - w1
+
+        def lerp(f, step):
+            return w0 * rec[f] + w1 * rec[f + step] + w2 * rec[f + 2 * step]
+        nx, ny, nz = lerp(0, 3), lerp(1, 3), lerp(2, 3)
+        basis = (torch.ones_like(nx), nx, ny, nz, nx * ny, nx * nz, ny * nz,
+                 nx * nx - ny * ny, 3.0 * (nz * nz) - 1.0)
+        shading = []
+        for c in range(3):
+            acc = (basis[0] * sh_factor[0]) * light[b, 0, c]
+            for k in range(1, 9):
+                acc = acc + (basis[k] * sh_factor[k]) * light[b, k, c]
+            shading.append(acc)
+        tex = bilinear_zeros(albedo[b], lerp(17, 2), lerp(18, 2))
+        rgb = tex * torch.stack(shading, -1)
+        hit3 = hit[:, None]
+        tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
+        color[b, t] = torch.where(hit3, rgb, 0.0)
+        bary[b, t] = torch.where(hit3, torch.stack([w0, w1, w2], -1), 0.0)
+    return tuple(_unband(a, height, width, tile_h)
+                 for a in (tri, color, bary))
+
+
 def _check_grad_inputs(row, g, blo, bn, rows: int, tile_h: int):
     bsz, height, width = row.shape
     n_bands = (height + tile_h - 1) // tile_h
@@ -718,6 +839,21 @@ def rasterize_shaded_reference(records, verts_ndc, faces, *, height: int,
     return _rasterize(shade_windows_reference, records, verts_ndc, faces,
                       height, width, tile_h, n_cols, cull_backfaces,
                       row_faces, row_id)
+
+
+def rasterize_textured(records, albedo, light, sh_factor, verts_ndc, faces,
+                       *, height: int, width: int, tile_h: int,
+                       n_cols: int = 1, cull_backfaces: bool = False,
+                       row_faces=None, row_id=None):
+    """Fused raster + DECA's textured shade (the FLAME inference path):
+    binning, then texture_windows. records (B, 24, padded_rows(F')) from
+    render.pack_texture_records; albedo (B, S, S, 3); light (B, 9, 3);
+    sh_factor (9,); the rest as rasterize_shaded. Returns (tri_id, color,
+    bary) as rasterize_shaded."""
+    def core(win, rec, **kw):
+        return texture_windows(win, rec, albedo, light, sh_factor, **kw)
+    return _rasterize(core, records, verts_ndc, faces, height, width,
+                      tile_h, n_cols, cull_backfaces, row_faces, row_id)
 
 
 def rasterize_select(records, verts_ndc, faces, *, height: int, width: int,

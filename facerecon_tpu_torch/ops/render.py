@@ -13,6 +13,13 @@ face is composited over the background. Two paths:
   reach the vertices through the records' affine forms (dL/dV_xy) and
   the radiance corners; tri_id is frozen and depth gets none (SURVEY
   §9.6).
+
+Given a FLAME config, DECA's codes and FLAME device assets
+(ops/flame.DeviceFLAME), `render_coeffs` renders DECA's coarse model
+instead (`render_flame`, inference only): FLAME's geometry, the UV
+albedo decode, and the textured raster (`rasterize.rasterize_textured`),
+whose kernel shades each pixel from its winner's world normals and UVs
+with SH-9 and a bilinear fetch of the albedo (`pack_texture_records`).
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from facerecon_tpu_torch.config import FaceReconConfig
+from facerecon_tpu_torch.config import FaceReconConfig, is_flame
+from facerecon_tpu_torch.ops import flame as flame_ops
 from facerecon_tpu_torch.ops import rasterize
 from facerecon_tpu_torch.ops import sh as sh_ops
 from facerecon_tpu_torch.ops.binning import affine_forms, ndc_to_screen
@@ -88,6 +96,19 @@ def pack_render_records(verts_ndc, radiance, faces, height: int, width: int,
                                    width), pad_rows)
 
 
+def pack_texture_records(verts_ndc, normals, flame, height: int, width: int,
+                         pad_rows: int):
+    """DECA's per-face render attributes, field-major (B, 24, pad_rows)
+    f32: [world-normal corners 9 (corner-major) | affine forms 6 | anchor
+    x0, y0 | UV corners 6 (grid_sample coordinates, corner-major) | zero
+    1] over the raster rows: _render_fields with the normals in the
+    radiance's place, then the static UV rows."""
+    rec = _stack24(_render_fields(verts_ndc, normals, flame.raster_rows,
+                                  height, width), pad_rows)
+    rec[:, 17:23, :flame.raster_uv.shape[1]] = flame.raster_uv
+    return rec
+
+
 def _shade_from_sel(tri_id, sel, height: int, width: int):
     """Color, barycentrics and skin mask from the select's winner fields
     sel (B, 20, H, W), with differentiable ops (twin of the reference's
@@ -131,7 +152,7 @@ class RenderOut(NamedTuple):
     tri_id: torch.Tensor      # (B,H,W) int32
     bary: torch.Tensor        # (B,H,W,3) barycentrics
     radiance: torch.Tensor    # (B,N,3) per-vertex shaded color
-    geometry: Geometry
+    geometry: Geometry        # ops/flame.FLAMEGeometry on the FLAME path
     skin: Optional[torch.Tensor] = None  # (B,H,W) interpolated skin mask
                                          # (training path only)
 
@@ -171,16 +192,74 @@ def render_geometry(geom: Geometry, gamma, bfm: DeviceBFM,
                      radiance=radiance, geometry=geom, skin=skin)
 
 
-def render_coeffs(coeffs: Coeffs, bfm: DeviceBFM, cfg: FaceReconConfig,
+def render_flame(codes, flame, cfg: FaceReconConfig,
+                 background: Optional[torch.Tensor] = None,
+                 image_size: Optional[int] = None) -> RenderOut:
+    """DECA's coarse render: FLAME geometry (fr.flame), the albedo decode
+    (fr.albedo), the textured records (fr.records), then binning and the
+    textured raster; the image is albedo x SH shading over the face,
+    composited over `background` (zeros by default, as DECA's). On the
+    card the geometry and the records replay CUDA graphs
+    (ops/flame.graphed); the geometry returned is copied out of its
+    graph."""
+    h = w = image_size or cfg.image_size
+    pad_rows = rasterize.padded_rows(flame.raster_rows.shape[0])
+
+    def geometry_fn(shape, exp, pose, cam):
+        return flame_ops.flame_geometry(
+            codes._replace(shape=shape, exp=exp, pose=pose, cam=cam), flame,
+            cfg, image_size=h)
+
+    def records_fn(verts_ndc, normals):
+        return (pack_texture_records(verts_ndc, normals, flame, h, w,
+                                     pad_rows),)
+    with torch.no_grad():
+        with span("fr.flame"):
+            geom = flame_ops.graphed(f"geometry{h}", geometry_fn, flame,
+                                     codes.shape, codes.exp, codes.pose,
+                                     codes.cam)
+            if geom.verts_ndc.is_cuda:
+                geom = geom._make(t.clone() for t in geom)
+        with span("fr.albedo"):
+            albedo = flame_ops.decode_albedo(codes.tex, flame)
+        with span("fr.records"):
+            (records,) = flame_ops.graphed(f"records{h}", records_fn, flame,
+                                           geom.verts_ndc, geom.normals)
+        tri_id, color, bary = rasterize.rasterize_textured(
+            records, albedo, codes.light.reshape(-1, 9, 3).contiguous(),
+            flame.sh_factor, geom.verts_ndc, flame.faces, height=h, width=w,
+            tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+            row_faces=flame.raster_rows, row_id=flame.raster_row_id)
+    mask = (tri_id >= 0).to(torch.float32)
+    image = color * mask[..., None]
+    if background is not None:
+        image = image + background * (1.0 - mask[..., None])
+    return RenderOut(image=image, mask=mask, tri_id=tri_id, bary=bary,
+                     radiance=None, geometry=geom)
+
+
+def render_coeffs(coeffs: Coeffs, assets: DeviceBFM, cfg: FaceReconConfig,
                   background: Optional[torch.Tensor] = None,
                   image_size: Optional[int] = None,
                   inference: bool = False) -> RenderOut:
     """Coefficients -> composited image. inference=True takes the
     forward-only in-kernel-shaded path (K1); the default is the
-    differentiable training render (K2 forward, K3 backward)."""
+    differentiable training render (K2 forward, K3 backward). A FLAME
+    config (with DECA's codes and ops/flame.DeviceFLAME assets) renders
+    DECA's coarse model (render_flame), which has no training render
+    yet."""
+    if is_flame(cfg):
+        if not inference:
+            raise ValueError(
+                "render_coeffs: DECA/FLAME renders for inference only "
+                "(inference=True); its differentiable render (textured K2/K3 "
+                "variants) is not implemented")
+        with span("fr.render"):
+            return render_flame(coeffs, assets, cfg, background=background,
+                                image_size=image_size)
     with span("fr.render"):
         with span("fr.geometry"):
-            geom = coeffs_to_geometry(coeffs, bfm, cfg)
-        return render_geometry(geom, coeffs.gamma, bfm, cfg,
+            geom = coeffs_to_geometry(coeffs, assets, cfg)
+        return render_geometry(geom, coeffs.gamma, assets, cfg,
                                background=background, image_size=image_size,
                                inference=inference)

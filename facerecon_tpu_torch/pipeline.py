@@ -11,6 +11,12 @@ there is no jit:
   - `fuse_for_inference` folds a BatchNorm pipeline's model into the
     fused one (models/fused.fold_bn_model), e.g. for a checkpoint the
     port trained.
+A FLAME config (cfg.model == "flame") with FLAME assets (utils/flame)
+runs DECA's coarse model on the same entry points: the ResNet with
+DECA's two-layer float32 head regresses 236 codes, which are split
+(utils/coeffs.DECACodes) and rendered through FLAME, the UV albedo and
+the textured raster (ops/render.render_flame), composited over zeros as
+DECA's renderer does.
 """
 
 from __future__ import annotations
@@ -21,23 +27,25 @@ from typing import Optional
 import torch
 
 from facerecon_tpu_torch import resolve_device
-from facerecon_tpu_torch.config import FaceReconConfig
+from facerecon_tpu_torch.config import FaceReconConfig, is_flame
 from torch import nn
 
 from facerecon_tpu_torch.models.fused import (FusedResNetRegressor,
                                               build_fused_model, fold_bn_model)
 from facerecon_tpu_torch.models.resnet import build_model
+from facerecon_tpu_torch.ops.flame import device_flame
 from facerecon_tpu_torch.ops.geometry import DeviceBFM, device_bfm
 from facerecon_tpu_torch.ops.render import render_coeffs
 from facerecon_tpu_torch.profile_trace import span
 from facerecon_tpu_torch.utils.bfm import BFMAssets
 from facerecon_tpu_torch.utils.coeffs import split_coeff
+from facerecon_tpu_torch.utils.flame import FLAMEAssets
 
 
 @dataclasses.dataclass
 class Pipeline:
     cfg: FaceReconConfig
-    bfm: DeviceBFM
+    bfm: DeviceBFM     # or DeviceFLAME for a FLAME config
     model: nn.Module   # FusedResNetRegressor, or ResNetRegressor to train
     device: torch.device
 
@@ -54,7 +62,11 @@ class Pipeline:
         The model runs in eval mode, as the reference's reconstruct runs
         it with train=False: a BatchNorm model normalises with its running
         statistics and leaves them as they are. The model's mode is
-        restored afterwards."""
+        restored afterwards.
+
+        A FLAME pipeline returns DECA's codes (B, 236), DECACodes and the
+        textured render, composited over `background` or, by default,
+        over zeros (DECA's); it renders for inference only."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         was = self.model.training
@@ -65,9 +77,10 @@ class Pipeline:
         finally:
             self.model.train(was)
         coeffs = split_coeff(coeff_vec, self.cfg)
+        if background is None and not is_flame(self.cfg):
+            background = images
         out = render_coeffs(coeffs, self.bfm, self.cfg,
-                            background=images if background is None
-                            else background, inference=inference)
+                            background=background, inference=inference)
         return coeff_vec, coeffs, out
 
 
@@ -79,8 +92,22 @@ def _pipeline(cfg, assets, device, model) -> Pipeline:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = model.to(dev, memory_format=torch.channels_last)
-    return Pipeline(cfg=cfg, bfm=device_bfm(assets, dev), model=model,
-                    device=dev)
+    return Pipeline(cfg=cfg, bfm=device_assets(assets, cfg, dev),
+                    model=model, device=dev)
+
+
+def device_assets(assets, cfg: FaceReconConfig, device):
+    """The assets of cfg's face model on the device: BFMAssets ->
+    DeviceBFM, FLAMEAssets -> DeviceFLAME (the albedo's first cfg.n_tex
+    components at cfg.uv_size). Raises when the pack is not of cfg's
+    model."""
+    flame = is_flame(cfg)
+    if flame != isinstance(assets, FLAMEAssets):
+        raise ValueError(f"a {'FLAME' if flame else 'BFM'} config was "
+                         f"given {type(assets).__name__}")
+    if flame:
+        return device_flame(assets, device, cfg.n_tex, cfg.uv_size)
+    return device_bfm(assets, device)
 
 
 def make_pipeline(cfg: FaceReconConfig, assets: BFMAssets, device="cuda",
@@ -111,8 +138,9 @@ def fuse_for_inference(pipe: Pipeline) -> Pipeline:
     from the running statistics, space-to-depth stem; exact to float32
     rounding) in the BN model's dtype. Training keeps the BN model."""
     bn = pipe.model
+    hidden = bn.head_hidden.out_features if bn.head_hidden is not None else 0
     fused = FusedResNetRegressor(bn.head.out_features, bn.stage_sizes,
-                                 bn.width, bn.dtype)
+                                 bn.width, bn.dtype, hidden)
     fused.load_state_dict(fold_bn_model(bn))
     fused = fused.to(pipe.device, memory_format=torch.channels_last).eval()
     return dataclasses.replace(pipe, model=fused)

@@ -85,10 +85,11 @@ def card():
 
 def _launches(**counts):
     """A path's launch counts: the named kernels' counts, 0 for the rest,
-    and one launch of each binning kernel for each K1, K2 and K4 launch
-    (each rasterizes windows that band_windows binned for it)."""
+    and one launch of each binning kernel for each K1, K2, K4 and textured
+    launch (each rasterizes windows that band_windows binned for it)."""
     want = dict.fromkeys(_build.KERNELS, 0) | counts
-    n = want["raster_shade"] + want["raster_select"] + want["raster_pos"]
+    n = (want["raster_shade"] + want["raster_select"] + want["raster_pos"]
+         + want["raster_texture"])
     return want | {"bin_setup": n, "bin_windows": n}
 
 

@@ -213,7 +213,7 @@ def test_summarize_reads_kernels_copies_and_the_ports_kernels():
     assert s["kernels"] == {"raster_shade": 0, "raster_select": 2,
                             "select_grad": 0, "raster_pos": 0,
                             "ctz_walk": 0, "bin_setup": 0,
-                            "bin_windows": 0}
+                            "bin_windows": 0, "raster_texture": 0}
 
 
 def test_busy_reading_fails_on_a_trace_without_device_events(monkeypatch):
