@@ -49,6 +49,17 @@ Phases (any failed check raises, and the script exits non-zero):
      from the same codes (perfbench/work_flame.texture_work: the bytes
      read and written once, the distinct albedo texels the covered
      pixels' bilinear footprints read, and the tests the inputs need).
+     Then the geometry kernel (csrc/geometry.cu, through
+     ops/geometry.vertex_pass) at the headline's microbatch (224 px,
+     batch 128) and render512's (512 px, batch 32) on the basis products
+     of sample_coeffs faces: one launch a call and nothing else, held
+     against its plain version on the card (shape and texture bit for
+     bit, the rest within GEO_ATOL, the landmarks within GEO_ATOL
+     relative); timed with CUDA events (the kernel, the whole layer
+     through coeffs_to_geometry under no_grad, the plain version: the
+     eager forward op for op), each pass's device ms,
+     and its bound (the bases read and the six planes written; the basis
+     products' FMAs).
   4. inference main path: Pipeline.reconstruct with the bf16 ResNet-50.
      A checked small batch of a random-weight model (finite outputs,
      coverage, one K1 launch per call, agreement with the same float32
@@ -58,8 +69,8 @@ Phases (any failed check raises, and the script exits non-zero):
      headline (facerecon_tpu_torch.bench.headline: the BN model's
      initial state, zero head, folded, images from default_rng(0), batch
      256 in microbatches of 128, 1 + 10 x 8 passes) with the launch
-     counters reset just before and read just after: one K1 launch a
-     call and one of each binning kernel, nothing else, every
+     counters reset just before and read just after: one K1 launch, one
+     geometry launch and one of each binning kernel a call, nothing else, every
      coefficient 0; its first K1 and binning calls held against their
      plain versions, K1 timed and bounded; its JSON line; its stage
      split.
@@ -106,7 +117,8 @@ Phases (any failed check raises, and the script exits non-zero):
      run, beside the __ffs walk.
   9. the fit driver (fit.make_fit_fn, batch 8 synthetic targets, 50
      Adam steps, landmarks on): the counted, timed fit (one K2 and one K3
-     launch a step, one more K2 for the final loss; the loss falls), then
+     launch a step, one more K2 and one geometry launch for the final
+     loss under no_grad; the loss falls), then
      fit.run on a PNG folder of the 8 faces, whose meshes load back.
  10. the train driver on a folder of 64 rendered PNGs, each warped by a
      random similarity, with 68-point side-cars: --data-dir --align 68pt
@@ -117,7 +129,8 @@ Phases (any failed check raises, and the script exits non-zero):
      float32 wires.
  11. the infer driver on 4 synthetic faces from a crafted checkpoint
      (perturbed BatchNorm statistics), BN and --fused, --overlay
-     --depth: every output file, one K1 and one K2 launch a run, the
+     --depth: every output file, one K1 and one K2 launch a run (and two
+     geometry launches: the synthetic render and the reconstruct), the
      fused coefficients within FUSED_BF16 of the BN-eval ones, finite
      landmark RMSE.
      In phases 9-11 the kernel wrappers record the arguments of their
@@ -129,21 +142,24 @@ Phases (any failed check raises, and the script exits non-zero):
      and each prints its launch counts above the kernels line.
  12. the track driver (track.run) at full width: joint on the synthetic
      sequence (16 frames, 100 refine steps: K1 twice, K2 101, K3 100
-     launches; the loss falls), --sequential (8 frames x 25 steps at
+     launches, geometry 4: the no_grad renders and the ground truth's
+     geometry; the loss falls), --sequential (8 frames x 25 steps at
      batch 1, with the device's busy share) and --video (a 16-frame MJPG
      clip written with cv2, decoded within 0.03 of its source, --align
      none; the loss halves), each holding its own first K1/K2/K3 calls
      as in phases 9-11.
  13. config 5's render at 512 px (bench.render512: tile_h 2 x 8
-     columns, batch 256 in microbatches of 32, one K1 launch each, 1 + 5
-     passes), the first microbatch's K1 and binning calls held whole (all
-     32 images), its JSON line, then K1's ms a launch.
+     columns, batch 256 in microbatches of 32, one K1 and one geometry
+     launch each, 1 + 5 passes), the first microbatch's K1 and binning
+     calls held whole (all 32 images), its JSON line, then K1's ms a
+     launch.
  14. the render-chain benchmark (render_bench, the twin of
      benchmarks/render_bench.py) through its own functions at batch 64:
      224 px (tile_h 2 x 7 columns) fwd and fwd+bwd, 512 px (tile_h 1 x 7
      columns of 80 px) fwd+bwd, reps and inner lowered to 1 and 2: each
-     run's launches exactly (1 + 3 reps) x inner K2 and, with --bwd, as
-     many K3, finite sums, its first K2 and K3 calls held whole against
+     run's launches exactly (1 + 3 reps) x inner K2 and as many K3 with
+     --bwd, or as many geometry launches without (the forward is under
+     no_grad), finite sums, its first K2 and K3 calls held whole against
      their plain versions (K3 also bitwise over two launches), ms a batch,
      K2 and K3 timed a launch on those calls, K2's tests made and issued
      and its bound, the peak of allocated memory.
@@ -171,10 +187,11 @@ Phases (any failed check raises, and the script exits non-zero):
  18. trace: the trace endpoint (profile_trace, the twin of
      benchmarks/profile_trace.py) through its main() at its defaults
      (batch 32) and through trace() at batch 128, 3 traced calls each
-     (K2 launched 1 + 3 times, 3 K2 device events in trace.json, the
-     warm-up call's K2 held), one headline microbatch of 128 (one K1
-     device event) and one train step at batch 128 (one K2 and one K3
-     device event), each after a warm-up; each trace read through
+     (K2 and the geometry kernel launched 1 + 3 times, 3 device events of
+     each in trace.json, the warm-up call's K2 held), one headline
+     microbatch of 128 (one K1 and one geometry device event) and one
+     train step at batch 128 (one K2 and one K3 device event), each
+     after a warm-up; each trace read through
      profile_trace.summarize: the device's busy share (the union of its
      kernels and copies over the window from the first host op to the
      last device event), its 10 device ops with the most time and its 5
@@ -287,6 +304,8 @@ TEX_CELL = "deca-render224.b512"   # DECA's textured kernel: the cell,
 TEX_BATCH = 256          # its microbatch,
 TEX_CALLS = 2            # the counted calls (the cell's unit)
 TEX_SEED = 22            # and the seed of the codes
+GEO_RUNS = (("headline", 224, MICRO), ("render512", 512, 32))
+GEO_ATOL = 1e-6          # geometry kernel vs its plain version on the card
 DEVICE = "cuda"
 
 
@@ -1393,6 +1412,113 @@ def check_binning(cfg, assets):
     return result
 
 
+def _device_ms(run, reps: int) -> dict:
+    """Device ms a call of each device op run() launches: reps calls after
+    a warm-up, in one torch.profiler pass; op name -> ms, and "all" their
+    sum."""
+    from torch.profiler import ProfilerActivity, profile
+    from facerecon_tpu_torch import profile_trace
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    top = profile_trace.summarize(profile_trace.trace_events(prof),
+                                  n_top=100)["top"]
+    out = {name: ms / reps for name, _, ms, _ in top}
+    out["all"] = sum(out.values())
+    return out
+
+
+def check_geometry(cfg, assets):
+    """The geometry kernel (csrc/geometry.cu, through
+    ops/geometry.vertex_pass) at each GEO_RUNS shape on the basis products
+    of sample_coeffs faces: one launch a call and nothing else; held
+    against its plain version run on the card, the eager path's forward
+    op for op (shape and texture bit for bit, every other field within
+    GEO_ATOL, the landmarks within GEO_ATOL relative); timed with CUDA
+    events (the kernel, the whole layer through coeffs_to_geometry under
+    no_grad, the plain version), each device op's ms, and
+    the bound: the bases read and the six (B, N, 3) planes and the
+    landmarks written, and the basis products' FMAs (one f32 instruction
+    each). Returns the kernels line's numbers at the headline's shape."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import geometry as G
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    bfm = G.device_bfm(assets, DEVICE)
+    result = {}
+    for where, size, batch in GEO_RUNS:
+        scfg = dataclasses.replace(cfg, image_size=size,
+                                   focal=cfg.focal * size / cfg.image_size)
+        c = split_coeff(torch.as_tensor(sample_coeffs(
+            np.random.default_rng(4), scfg, batch), device=DEVICE), scfg)
+        parts = G.basis_products(c, bfm)
+        _build.reset_launches()
+        got = G.vertex_pass(parts, c, bfm, scfg)
+        torch.cuda.synchronize()
+        if dict(_build.LAUNCHES) != _launches(geometry=1):
+            raise AssertionError(f"geometry ({where}) launched "
+                                 f"{dict(_build.LAUNCHES)}")
+        ref = G.vertex_pass_reference(parts, c, bfm, scfg)
+        errs = {}
+        for name in G.Geometry._fields:
+            a, b = getattr(got, name), getattr(ref, name)
+            err = float((a - b).abs().max())
+            errs[name] = err
+            if name in ("shape", "texture"):
+                ok = torch.equal(a, b)
+            elif name == "landmarks2d":
+                ok = bool(((a - b).abs() <= GEO_ATOL * b.abs()).all())
+            else:
+                ok = err <= GEO_ATOL
+            if not ok:
+                raise AssertionError(f"geometry ({where}): {name} differs "
+                                     f"from the plain version by {err}")
+        print(f"geometry {where}: batch {batch}, {size} px: held against "
+              f"the plain version on the card, max |diff| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        del ref
+
+        def layer():
+            with torch.no_grad():
+                return G.coeffs_to_geometry(c, bfm, scfg)
+        ms = _time_ms(lambda: G.vertex_pass(parts, c, bfm, scfg), 20)
+        layer_ms = _time_ms(layer, 20)
+        plain_ms = _time_ms(
+            lambda: G.vertex_pass_reference(parts, c, bfm, scfg), REPS)
+        split = _device_ms(layer, 20)
+        named = {k: v for k, v in split.items()
+                 if k == "all" or "geometry" in k or "shape_kernel" in k}
+        n_fma = batch * parts[0].shape[1] * sum(
+            b.shape[1] for b in (bfm.id_basis, bfm.exp_basis,
+                                 bfm.tex_basis))
+        bound_ms, bound_by = _bound(
+            _nbytes(bfm.id_basis, bfm.exp_basis, bfm.tex_basis,
+                    *got[:5], got.radiance, got.landmarks2d),
+            n_fma, f"geometry ({where})")
+        design = _nbytes(bfm.id_basis, bfm.exp_basis, bfm.tex_basis,
+                         got.landmarks2d) + 13 * _nbytes(got.shape)
+        print(f"geometry {where}: kernel {ms:.4f} ms a call, the layer "
+              f"(basis products + kernel) {layer_ms:.4f} ms, device ms "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in named.items())
+              + f"; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({100 * bound_ms / layer_ms:.1f}% of the layer), "
+              f"the design's bytes {design} -> "
+              f"{design / H100_BYTES_S * 1e3:.4f} ms on {_card_line()}")
+        if where == "headline":
+            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by,
+                          max_abs_err=max(errs.values()),
+                          library_ms=None)
+        del got, parts, c
+    del bfm
+    torch.cuda.empty_cache()
+    return result
+
+
 def check_texture():
     """DECA's textured kernel on the path of TEX_CELL (the docstring's
     phase 3). Returns the kernels line's numbers and the path's launch
@@ -1557,7 +1683,7 @@ def check_end_to_end(cfg, assets):
           f"{HEAD_INNER_REPS} timed passes after 1) on {_card_line()}")
     print(f"inference main path: {n_calls} reconstruct calls, launches "
           f"{launches}")
-    if launches != _launches(raster_shade=n_calls):
+    if launches != _launches(raster_shade=n_calls, geometry=n_calls):
         raise AssertionError("the inference main path did not launch "
                              "raster_shade and the binning kernels once "
                              "per call (and nothing else)")
@@ -1813,7 +1939,7 @@ def check_fit(cfg, assets, tmp):
     print(f"fit losses: first {losses[0]:.5f} last {losses[-1]:.5f}; "
           f"launches {launches}")
     want = _launches(raster_select=FIT_DRIVER_STEPS + 1,
-                     select_grad=FIT_DRIVER_STEPS)
+                     select_grad=FIT_DRIVER_STEPS, geometry=1)
     if launches != want:
         raise AssertionError(f"the fit launched {launches}, not {want}")
     short = fit.make_fit_fn(cfg, 5, lr=5e-3)
@@ -1901,7 +2027,8 @@ def check_infer(cfg, assets, tmp):
             _build.reset_launches()
             rep = infer.run(infer.parse_args(argv))
             counts[mode] = dict(_build.LAUNCHES)
-        if counts[mode] != _launches(raster_shade=1, raster_select=1):
+        if counts[mode] != _launches(raster_shade=1, raster_select=1,
+                                     geometry=2):
             raise AssertionError(f"infer ({mode}) launched {counts[mode]}")
         _hold_recorded(seen, f"infer ({mode}, {INFER_FACES} faces)")
         del seen
@@ -2168,8 +2295,12 @@ def _track(label, argv, want):
 
 
 def _track_launches(k1, steps):
+    """K1 k1 times (the synthetic sequence's render, when k1 is 2, and the
+    tracked one), K2 a step and once for the report, K3 a step; the
+    geometry kernel for each no_grad render and for the synthetic
+    sequence's ground-truth geometry."""
     return _launches(raster_shade=k1, raster_select=steps + 1,
-                     select_grad=steps)
+                     select_grad=steps, geometry=k1 + 1 + (k1 == 2))
 
 
 def check_track(cfg, assets, tmp):
@@ -2288,7 +2419,7 @@ def check_render512():
         launches = dict(_build.LAUNCHES)
     print(json.dumps(payload))
     want = (1 + REPS) * (R512_BATCH // R512_MICRO)
-    if launches != _launches(raster_shade=want):
+    if launches != _launches(raster_shade=want, geometry=want):
         raise AssertionError(f"render512 launched {launches}")
     if not bool(torch.isfinite(means).all()):
         raise AssertionError("render512: non-finite images")
@@ -2385,7 +2516,8 @@ def check_render_bench():
             launches = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         n = (1 + 3 * RENDER_REPS) * RENDER_INNER
-        want = _launches(raster_select=n, select_grad=n if bwd else 0)
+        want = _launches(raster_select=n, select_grad=n if bwd else 0,
+                         geometry=0 if bwd else n)
         if launches != want:
             raise AssertionError(f"{where} launched {launches}, not {want}")
         if not (np.isfinite(res["first_sum"]) and np.isfinite(res["sum"])):
@@ -2725,13 +2857,14 @@ def check_trace(cfg, assets, tmp):
                                               cfg, assets)
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-        if launches != _launches(raster_select=1 + steps):
+        if launches != _launches(raster_select=1 + steps,
+                                 geometry=1 + steps):
             raise AssertionError(f"the twin at batch {batch} launched "
                                  f"{launches}")
         total.update(launches)
         _read_trace(f"the twin, batch {batch}, {steps} calls",
                     profile_trace.load_events(path),
-                    _launches(raster_select=steps))
+                    _launches(raster_select=steps, geometry=steps))
         _hold_recorded(seen, f"the twin's warm-up call (batch {batch})")
         del seen
         torch.cuda.empty_cache()
@@ -2757,7 +2890,7 @@ def check_trace(cfg, assets, tmp):
         MICRO, cfg.image_size)).to(DEVICE)
     traced(f"one headline microbatch of {MICRO}",
            lambda: bench.headline_pass(pipe, images, MICRO),
-           lambda out: out[1].sum(), _launches(raster_shade=1))
+           lambda out: out[1].sum(), _launches(raster_shade=1, geometry=1))
     del pipe, images
     torch.cuda.empty_cache()
 
@@ -2884,6 +3017,7 @@ def main() -> int:
     measured["raster_pos"] = _check_raster("raster_pos", MICRO, cfg, assets,
                                            rng)[0]
     measured["binning"] = _timed("binning", check_binning, cfg, assets)
+    measured["geometry"] = _timed("geometry", check_geometry, cfg, assets)
     measured["raster_texture"], texture_launches = _timed(
         "texture", check_texture)
     check_wide_band(cfg, assets)
@@ -2933,7 +3067,9 @@ def main() -> int:
         "raster_pos": "facerecon_tpu/ops/rasterize_pallas.py:133",
         "ctz_walk": "benchmarks/ctzloop_probe.py:48",
         "raster_texture": "none (the JAX package has no DECA/FLAME path)",
-        "binning": "none (XLA-fused jnp: facerecon_tpu/ops/binning.py:228)"}
+        "binning": "none (XLA-fused jnp: facerecon_tpu/ops/binning.py:228)",
+        "geometry": "none (XLA-fused jnp: facerecon_tpu/ops/geometry.py "
+                    "coeffs_to_geometry, facerecon_tpu/ops/sh.py illuminate)"}
     kernels = [dict(
         name=name, route="cuda",
         source=f"facerecon_tpu_torch/csrc/{name}.cu",
@@ -2946,7 +3082,7 @@ def main() -> int:
               f"raster_select {n['raster_select']}, select_grad "
               f"{n['select_grad']}, raster_pos {n['raster_pos']}, "
               f"bin_setup {n['bin_setup']}, bin_windows "
-              f"{n['bin_windows']}")
+              f"{n['bin_windows']}, geometry {n['geometry']}")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -39,12 +39,14 @@ from pathlib import Path
 import torch
 
 KERNELS = ("raster_shade", "raster_select", "select_grad", "raster_pos",
-           "ctz_walk", "bin_setup", "bin_windows", "raster_texture")
+           "ctz_walk", "bin_setup", "bin_windows", "raster_texture",
+           "geometry")
 # the source, csrc/<source>.cu, of each kernel not in a file of its own
 # name
 SOURCES = {"bin_setup": "binning", "bin_windows": "binning"}
 # the device function each kernel's C entry launches exactly once a
-# launch (K3's last pass), as a profiler's trace names it
+# launch (K3's and the geometry's last pass), as a profiler's trace names
+# it
 SYMBOLS = {"raster_shade": "raster_shade_kernel",
            "raster_select": "raster_select_kernel",
            "select_grad": "sum_rows",
@@ -52,7 +54,8 @@ SYMBOLS = {"raster_shade": "raster_shade_kernel",
            "ctz_walk": "ctz_walk_kernel",
            "bin_setup": "bin_setup_kernel",
            "bin_windows": "bin_windows_kernel",
-           "raster_texture": "raster_texture_kernel"}
+           "raster_texture": "raster_texture_kernel",
+           "geometry": "geometry_kernel"}
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -180,18 +183,20 @@ def check_tensors(dev, want) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch(name: str, dev: torch.device, ptrs, ints, defines=()) -> None:
+def launch(name: str, dev: torch.device, ptrs, ints, defines=(),
+           floats=()) -> None:
     """Launch kernel `name` (built at first use; the variant with
     `defines` set) on the current stream of `dev`: its C entry takes the
-    pointers, then the ints, then the stream, and returns the launch's
-    CUDA error code."""
+    pointers, then the ints, then the floats (as C floats), then the
+    stream, and returns the launch's CUDA error code."""
     fn = getattr(load(name, defines), name)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), *ints, stream)
+        err = fn(*(t.data_ptr() for t in ptrs), *ints,
+                 *(float(x) for x in floats), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

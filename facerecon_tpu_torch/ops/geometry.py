@@ -6,17 +6,29 @@ float32: the fidelity contract is closeness to the numpy oracle, and the
 JAX reference measured 1.1e-3 vertex MAE and 84% tri_id agreement with
 bf16 synthesis. On the card that means TF32 off
 (`torch.backends.cuda.matmul.allow_tf32 = False`, set by the pipeline).
+
+`coeffs_to_geometry` takes one of two paths, chosen by autograd alone:
+- where autograd records the call (grad enabled and a coefficient or a
+  basis requires grad: training, fitting), the eager ops below, the twin
+  of the reference with its gather-based adjoints;
+- otherwise the basis products (`basis_products`, plain matrix products)
+  and then `vertex_pass`: on CUDA tensors the kernel `csrc/geometry.cu`
+  (one launch, two passes), on CPU tensors its plain version
+  `vertex_pass_reference`. That path also lights the mesh with SH-9, so
+  its Geometry carries the radiance.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from facerecon_tpu_torch import resolve_device
 from facerecon_tpu_torch.config import FaceReconConfig
+from facerecon_tpu_torch.ops import _build
+from facerecon_tpu_torch.ops.sh import SH_SCALES, illuminate
 from facerecon_tpu_torch.utils.coeffs import Coeffs
 
 
@@ -252,10 +264,25 @@ class Geometry(NamedTuple):
     texture: torch.Tensor      # (B,N,3) albedo [0,1]
     normals: torch.Tensor      # (B,N,3) world-space vertex normals
     landmarks2d: torch.Tensor  # (B,68,2) pixel coords
+    radiance: Optional[torch.Tensor] = None  # (B,N,3) SH-9 radiance under
+                                             # the coefficients' gamma
+                                             # (the forward-only path)
+
+
+def autograd_records(*tensors) -> bool:
+    """True where autograd records an op on these tensors: grad enabled
+    and any of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def coeffs_to_geometry(c: Coeffs, bfm: DeviceBFM,
                        cfg: FaceReconConfig) -> Geometry:
+    """Coefficients -> Geometry. Where autograd records the call, the
+    eager differentiable ops (radiance None); otherwise the basis products
+    and `vertex_pass` (the kernel on the card), with the radiance."""
+    if not autograd_records(*c, bfm.mean_shape, bfm.id_basis,
+                            bfm.exp_basis, bfm.mean_tex, bfm.tex_basis):
+        return vertex_pass(basis_products(c, bfm), c, bfm, cfg)
     shape = shape_formation(c.id, c.exp, bfm)
     tex = texture_formation(c.tex, bfm)
     rot = compute_rotation(c.angles)
@@ -272,3 +299,95 @@ def coeffs_to_geometry(c: Coeffs, bfm: DeviceBFM,
         normals=normals,
         landmarks2d=project_landmarks(verts, bfm, cfg),
     )
+
+
+# --- the forward-only path: basis products, then one vertex pass ---
+
+def basis_products(c: Coeffs, bfm: DeviceBFM):
+    """The three (B, 3N) basis products A_id alpha, A_exp beta and
+    A_tex delta, as shape_formation and texture_formation compute them."""
+    return (c.id @ bfm.id_basis.T, c.exp @ bfm.exp_basis.T,
+            c.tex @ bfm.tex_basis.T)
+
+
+def vertex_pass_reference(parts, c: Coeffs, bfm: DeviceBFM,
+                          cfg: FaceReconConfig) -> Geometry:
+    """Plain PyTorch version of the geometry kernel, on any device: from
+    the basis products `parts` to the Geometry with its radiance. It is
+    the eager path's forward op for op (the same functions, so the same
+    numbers bit for bit), and the kernel's float32 operations in their
+    order, but for the rotation's three 3x3 products: here the library's
+    matmuls, which sum the three terms in their own order (fused on the
+    card); the kernel sums them in k order, unfused."""
+    id_part, exp_part, tex_part = parts
+    bsz = id_part.shape[0]
+    shape = (bfm.mean_shape[None, :] + id_part + exp_part).reshape(bsz, -1, 3)
+    tex = ((bfm.mean_tex[None, :] + tex_part) / 255.0).reshape(bsz, -1, 3)
+    rot = compute_rotation(c.angles)
+    verts = rigid_transform(shape, rot, c.trans)
+    normals = compute_norm(shape, bfm.faces, bfm.vertex_face_adj,
+                           bfm.vertex_corner_adj_cm) @ rot.transpose(-1, -2)
+    return Geometry(
+        shape=shape,
+        verts_world=verts,
+        verts_ndc=to_ndc(verts, cfg),
+        texture=tex,
+        normals=normals,
+        landmarks2d=project_landmarks(verts, bfm, cfg),
+        radiance=illuminate(tex, normals, c.gamma),
+    )
+
+
+def vertex_pass(parts, c: Coeffs, bfm: DeviceBFM,
+                cfg: FaceReconConfig) -> Geometry:
+    """The basis products `parts` ((B, 3N) f32 each) -> the Geometry with
+    its radiance. CPU tensors take the plain version
+    (vertex_pass_reference); CUDA tensors launch `csrc/geometry.cu` once
+    (the shape pass, then one thread a vertex and a landmark), which has
+    no backward: the inputs f32 and contiguous, the angles, gamma and
+    trans f32 rows whose last axis is contiguous (views of one
+    coefficient row do), the index tables int64, or it raises."""
+    dev = parts[0].device
+    if not _build.on_card(dev):
+        return vertex_pass_reference(parts, c, bfm, cfg)
+    id_part, exp_part, tex_part = parts
+    bsz, plane = id_part.shape
+    n = plane // 3
+    f = bfm.faces.shape[0]
+    deg = bfm.vertex_face_adj.shape[1]
+    n_lmk = bfm.landmark_index.shape[0]
+    f32, i64 = torch.float32, torch.int64
+    _build.check_tensors(dev, {
+        "id_part": (id_part, f32, (bsz, 3 * n)),
+        "exp_part": (exp_part, f32, (bsz, 3 * n)),
+        "tex_part": (tex_part, f32, (bsz, 3 * n)),
+        "mean_shape": (bfm.mean_shape, f32, (3 * n,)),
+        "mean_tex": (bfm.mean_tex, f32, (3 * n,)),
+        "faces": (bfm.faces, i64, (f, 3)),
+        "vertex_face_adj": (bfm.vertex_face_adj, i64, (n, deg)),
+        "landmark_index": (bfm.landmark_index, i64, (n_lmk,)),
+    })
+    for name, width in (("angles", 3), ("gamma", 27), ("trans", 3)):
+        t = getattr(c, name)
+        if (t.device != dev or t.dtype != f32
+                or tuple(t.shape) != (bsz, width) or t.stride(-1) != 1):
+            raise ValueError(f"{name}: expected f32 ({bsz}, {width}) rows "
+                             f"with a contiguous last axis on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} stride "
+                             f"{t.stride()} on {t.device}")
+    out = [torch.empty((bsz, n, 3), dtype=f32, device=dev) for _ in range(6)]
+    lmk = torch.empty((bsz, n_lmk, 2), dtype=f32, device=dev)
+    if bsz:
+        _build.launch(
+            "geometry", dev,
+            (id_part, exp_part, tex_part, bfm.mean_shape, bfm.mean_tex,
+             c.angles, c.gamma, c.trans, bfm.faces, bfm.vertex_face_adj,
+             bfm.landmark_index, *out, lmk),
+            (bsz, n, f, deg, n_lmk, c.angles.stride(0), c.gamma.stride(0),
+             c.trans.stride(0)),
+            floats=(cfg.focal, cfg.camera_distance, cfg.center,
+                    cfg.image_size / 2.0, *SH_SCALES))
+    shape, verts, ndc, normals, tex, radiance = out
+    return Geometry(shape=shape, verts_world=verts, verts_ndc=ndc,
+                    texture=tex, normals=normals, landmarks2d=lmk,
+                    radiance=radiance)

@@ -5,7 +5,9 @@ that give the barycentrics) feed the fused rasterizers, and the shaded
 face is composited over the background. Two paths:
 
 - inference=True: forward only. The kernel K1 (`rasterize_shaded`)
-  shades in-kernel.
+  shades in-kernel. Under no_grad the geometry comes from the geometry
+  kernel with its radiance (ops/geometry.vertex_pass), so there is no
+  separate SH pass.
 - inference=False: the differentiable training render. K2
   (`rasterize_select`) returns each pixel's winner record fields, and
   `_shade_from_sel` rebuilds color, barycentrics and the skin mask from
@@ -34,6 +36,7 @@ from facerecon_tpu_torch.ops import rasterize
 from facerecon_tpu_torch.ops import sh as sh_ops
 from facerecon_tpu_torch.ops.binning import affine_forms, ndc_to_screen
 from facerecon_tpu_torch.ops.geometry import (DeviceBFM, Geometry,
+                                              autograd_records,
                                               coeffs_to_geometry,
                                               take_corner_planes)
 from facerecon_tpu_torch.profile_trace import span
@@ -162,9 +165,17 @@ def render_geometry(geom: Geometry, gamma, bfm: DeviceBFM,
                     background: Optional[torch.Tensor] = None,
                     image_size: Optional[int] = None,
                     inference: bool = False) -> RenderOut:
+    """Light (unless the geometry carries its radiance), pack the
+    records, rasterize and composite. `geom.radiance`, where the
+    forward-only path set it, is taken as the SH shade of `geom`'s texture
+    and normals under `gamma`; it is recomputed where autograd records any
+    of them."""
     h = w = image_size or cfg.image_size
-    with span("fr.geometry"):
-        radiance = sh_ops.illuminate(geom.texture, geom.normals, gamma)
+    radiance = geom.radiance
+    if radiance is None or autograd_records(geom.texture, geom.normals,
+                                            gamma):
+        with span("fr.geometry"):
+            radiance = sh_ops.illuminate(geom.texture, geom.normals, gamma)
     pad_rows = rasterize.padded_rows(bfm.raster_rows.shape[0])
     kw = dict(height=h, width=w, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
               row_faces=bfm.raster_rows, row_id=bfm.raster_row_id)

@@ -33,7 +33,9 @@ them; `main` prints it before its last line. The port's spans:
   fr.cnn        the regressor's forward (Pipeline.reconstruct,
                 pipeline.regress_coeffs)
   fr.render     ops/render.render_coeffs, one a call
-  fr.geometry   coeffs_to_geometry and sh.illuminate, inside fr.render
+  fr.geometry   coeffs_to_geometry (the basis products and the geometry
+                kernel where autograd records nothing), and sh.illuminate
+                on the differentiable path, inside fr.render
   fr.records    the render records, inside fr.render
   fr.binning    rasterize.band_windows, inside fr.render
   fr.losses     the train step's total_loss

@@ -48,7 +48,17 @@ px with tile_h 2 x 8 at batch 32, both on the raster row order and a
 shuffled one, and K4's identity order (tile_h 8 x one 224-px column)
 with and without cull_backfaces; also on dead, grid-snapped and
 off-screen faces; a call launches each once, and every path launches
-them once for each K1, K2 and K4 launch (_launches).
+them once for each K1, K2 and K4 launch (_launches). The geometry kernel
+(csrc/geometry.cu, through ops/geometry.vertex_pass) at the inference
+microbatch (224 px, batch 128) and render512's (512 px, batch 32) on the
+full mesh: one launch a call; shape and texture bit for bit its plain
+version's on the card, the posed fields within 1e-6 (the rotation's
+3x3 products sum the same terms in another order), the landmarks within
+1e-6 relative; coeffs_to_geometry launches it once under no_grad and
+never where the coefficients require grad; and a short run of the
+benchmark's infer224.b256 and render512.b256 cells at batch 8 through it
+is correct under the cells' own limits. Every path whose forward runs
+under no_grad launches it once for each geometry it computes.
 """
 
 import dataclasses
@@ -464,8 +474,8 @@ def test_fit_step_on_card_matches_cpu(card):
     """One fit step (fit.make_fit_fn, landmarks on) on the card and on
     the CPU from the same start and targets: the loss within 1e-4
     relative, the coefficients' gradient within 1e-3 of its max; K2 and
-    K3 launch once each on the card (and K2 once more for the final
-    loss), never on the CPU."""
+    K3 launch once each on the card (and K2 and the geometry kernel once
+    more for the final loss, under no_grad), never on the CPU."""
     from facerecon_tpu_torch.data.synthetic import render_batch
     from facerecon_tpu_torch.fit import make_fit_fn
     from facerecon_tpu_torch.ops.losses import total_loss
@@ -489,7 +499,7 @@ def test_fit_step_on_card_matches_cpu(card):
         (grad,) = torch.autograd.grad(loss, coeff)
         runs.append((float(res.losses[0]), grad.cpu(), launched))
     (l_card, g_card, n_card), (l_cpu, g_cpu, n_cpu) = runs
-    assert n_card == _launches(raster_select=2, select_grad=1)
+    assert n_card == _launches(raster_select=2, select_grad=1, geometry=1)
     assert not any(n_cpu.values())
     assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
     scale = float(g_cpu.abs().max())
@@ -665,7 +675,7 @@ def test_bench_modes_launch_their_kernels(card, mode):
     if mode == "headline":
         payload, (cv, out) = bench.headline(batch=8, micro=4, reps=2,
                                             inner_reps=2, device=card)
-        want = {"raster_shade": (1 + 2 * 2) * 2}
+        want = {"raster_shade": (1 + 2 * 2) * 2, "geometry": (1 + 2 * 2) * 2}
         assert not cv.any()                    # the reference's zero head
     elif mode == "train":
         payload, parts = bench.train(batch=4, reps=2, chunk=2, device=card)
@@ -674,7 +684,7 @@ def test_bench_modes_launch_their_kernels(card, mode):
     else:
         payload, out = bench.render512(batch=8, micro=4, reps=2,
                                        device=card)
-        want = {"raster_shade": (1 + 2) * 2}
+        want = {"raster_shade": (1 + 2) * 2, "geometry": (1 + 2) * 2}
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     assert launched == _launches(**want)
@@ -714,17 +724,18 @@ def test_entry_launches_select_once(card, monkeypatch):
 
 def test_trace_twin_holds_its_select_events(card, tmp_path):
     """profile_trace.trace at tiny_config(), batch 2, 2 traced calls:
-    K2 launched 1 + 2 times and nothing else; the trace holds exactly 2
-    K2 device events (the profiler records the ctypes-launched kernels)
-    and no other kernel of the port."""
+    K2 and the geometry kernel (the forward is under no_grad) launched
+    1 + 2 times and nothing else; the trace holds exactly 2 device events
+    of each (the profiler records the ctypes-launched kernels) and no
+    other kernel of the port."""
     from facerecon_tpu_torch import profile_trace
     before = dict(_build.LAUNCHES)
     path, _ = profile_trace.trace(str(tmp_path), batch=2, steps=2,
                                   device=card, cfg=tiny_config())
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched == _launches(raster_select=3)
+    assert launched == _launches(raster_select=3, geometry=3)
     s = profile_trace.summarize(profile_trace.load_events(path))
-    assert s["kernels"] == _launches(raster_select=2)
+    assert s["kernels"] == _launches(raster_select=2, geometry=2)
     assert 0 < s["busy_share"] <= 1
 
 
@@ -803,8 +814,10 @@ def test_raster_bench_pos_culled_wide_band_matches_plain(card):
 def test_bench_twins_launch_their_kernels(card, monkeypatch, twin):
     """The twins' mains at tiny_config() (default_config swapped for it):
     render_bench (1 + 3 reps) x inner K2 launches, as many K3 with
-    --bwd; raster_bench 1 + 3 reps K4 launches and one more for --check,
-    whose mismatch is 0; nothing else."""
+    --bwd, or as many geometry launches without (the forward is under
+    no_grad); raster_bench 1 + 3 reps K4 launches and one more for
+    --check, whose mismatch is 0, and one geometry launch (its inputs);
+    nothing else."""
     from facerecon_tpu_torch import raster_bench, render_bench
     mod = raster_bench if twin == "raster" else render_bench
     monkeypatch.setattr(mod, "default_config",
@@ -813,7 +826,7 @@ def test_bench_twins_launch_their_kernels(card, monkeypatch, twin):
     if twin == "raster":
         res = raster_bench.main(["--batch", "2", "--reps", "1", "--size",
                                  "64", "--check"])
-        want = {"raster_pos": 1 + 3 + 1}
+        want = {"raster_pos": 1 + 3 + 1, "geometry": 1}
         assert res["mismatch"] == 0
     else:
         bwd = twin == "render_bwd"
@@ -821,7 +834,8 @@ def test_bench_twins_launch_their_kernels(card, monkeypatch, twin):
                                  "2", "--size", "64", "--tileh", "2"]
                                 + (["--bwd"] if bwd else []))
         n = (1 + 3) * 2
-        want = {"raster_select": n, "select_grad": n if bwd else 0}
+        want = {"raster_select": n, "select_grad": n if bwd else 0,
+                "geometry": 0 if bwd else n}
         assert np.isfinite(res["sum"])
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
@@ -1147,4 +1161,119 @@ def test_binning_wrapper_rejects_what_the_kernels_do_not_take(card, case):
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError):
         R.band_windows(vndc, faces, rid, s, s, cfg.tile_h, n_cols)
+    assert dict(_build.LAUNCHES) == before
+
+
+# --- the geometry kernel (csrc/geometry.cu) against its plain version ---
+
+# path -> (size, batch): the inference microbatch and render512's
+_GEO_SHAPES = {"infer224": (224, 128), "render512": (512, 32)}
+
+
+def _geo_inputs(full_mesh, size, batch, seed=4):
+    """(cfg at `size` px, focal scaled, bfm, Coeffs of sample_coeffs
+    faces, their basis products) on the card."""
+    from facerecon_tpu_torch.ops.geometry import basis_products
+    cfg, bfm = full_mesh
+    cfg = dataclasses.replace(cfg, image_size=size,
+                              focal=cfg.focal * size / cfg.image_size)
+    c = split_coeff(torch.as_tensor(sample_coeffs(
+        np.random.default_rng(seed), cfg, batch), device=bfm.faces.device),
+        cfg)
+    return cfg, bfm, c, basis_products(c, bfm)
+
+
+@pytest.mark.parametrize("path", list(_GEO_SHAPES))
+def test_geometry_kernel_equals_plain_at_path_shapes(card, full_mesh, path):
+    """The geometry kernel at each path's shape on the full mesh: one
+    launch and nothing else; the plain version run on the card gives
+    shape and texture bit for bit (the same float32 ops), every other
+    field within 1e-6 (the rotation's sums are the same terms in the same
+    order; sin and cos are the library's), the landmarks within 1e-6
+    relative."""
+    from facerecon_tpu_torch.ops.geometry import (vertex_pass,
+                                                  vertex_pass_reference)
+    size, batch = _GEO_SHAPES[path]
+    cfg, bfm, c, parts = _geo_inputs(full_mesh, size, batch)
+    before = dict(_build.LAUNCHES)
+    got = vertex_pass(parts, c, bfm, cfg)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == _launches(geometry=1)
+    ref = vertex_pass_reference(parts, c, bfm, cfg)
+    for name in ("shape", "texture"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    for name in ("verts_world", "verts_ndc", "normals", "radiance"):
+        err = float((getattr(got, name) - getattr(ref, name)).abs().max())
+        assert err <= 1e-6, (name, err)
+    assert bool(((got.landmarks2d - ref.landmarks2d).abs()
+                 <= 1e-6 * ref.landmarks2d.abs()).all())
+    assert float(got.normals.norm(dim=-1).min()) > 0.99
+
+
+def test_geometry_kernel_only_where_autograd_records_nothing(card,
+                                                             full_mesh):
+    """coeffs_to_geometry launches the geometry kernel once a call under
+    no_grad (the Geometry carries the radiance) and never where the
+    coefficients require grad (the eager path, radiance None, gradients
+    finite)."""
+    from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry
+    cfg, bfm, c, _ = _geo_inputs(full_mesh, 224, 4)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        geom = coeffs_to_geometry(c, bfm, cfg)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == _launches(geometry=1)
+    assert geom.radiance is not None
+    leaf = tuple(t.detach().clone().requires_grad_(True) for t in c)
+    before = dict(_build.LAUNCHES)
+    geom = coeffs_to_geometry(type(c)(*leaf), bfm, cfg)
+    grads = torch.autograd.grad(geom.verts_ndc.sum() + geom.normals.sum(),
+                                leaf, allow_unused=True)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == before
+    assert geom.radiance is None
+    assert all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("name", ["infer224.b256", "render512.b256"])
+def test_geometry_kernel_path_is_correct_end_to_end(card, name):
+    """A short run of the benchmark's cell at batch 8 (the cell's
+    configuration, its traffic's batch and microbatch cut to 8), through
+    the geometry kernel: correct against the plain reference under the
+    cell's own limits."""
+    import copy
+    from perfbench import run, spec
+    cell = copy.deepcopy(spec.cell(name))
+    cell["traffic"].update(batch=8, microbatch=8)
+    before = _build.LAUNCHES["geometry"]
+    r = run.run_cell(cell, 2 ** 31 + 79, 0.5, False, card)
+    assert r["correct"], r["compared"]
+    assert _build.LAUNCHES["geometry"] > before
+
+
+@pytest.mark.parametrize("case", ["parts_f64", "parts_strided", "gamma_cols",
+                                  "faces_i32", "mean_cpu"])
+def test_geometry_wrapper_rejects_what_the_kernel_does_not_take(card,
+                                                               full_mesh,
+                                                               case):
+    """vertex_pass on the card raises, launching nothing, on a wrong
+    dtype or device, a non-contiguous product, or coefficient rows whose
+    last axis is not contiguous."""
+    from facerecon_tpu_torch.ops.geometry import vertex_pass
+    cfg, bfm, c, parts = _geo_inputs(full_mesh, 224, 2)
+    if case == "parts_f64":
+        parts = (parts[0].double(), *parts[1:])
+    elif case == "parts_strided":
+        parts = (torch.cat([parts[0], parts[0]], dim=1)[:, ::2], *parts[1:])
+    elif case == "gamma_cols":
+        c = c._replace(gamma=c.gamma.t().contiguous().t())
+    elif case == "faces_i32":
+        bfm = bfm._replace(faces=bfm.faces.int())
+    else:
+        bfm = bfm._replace(mean_shape=bfm.mean_shape.cpu())
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        vertex_pass(parts, c, bfm, cfg)
     assert dict(_build.LAUNCHES) == before

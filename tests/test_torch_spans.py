@@ -112,8 +112,9 @@ def test_each_render_call_gives_one_render_span_holding_its_stages(port):
     assert len(renders) == 2
     for r in renders:
         held = [a[2] for a in ann if a is not r and _inside(a, r)]
-        # coeffs_to_geometry and the SH lighting: two fr.geometry spans
-        assert sorted(held) == sorted(RENDER + ("fr.geometry",))
+        # where autograd records nothing coeffs_to_geometry also lights
+        # the mesh (the geometry kernel): one fr.geometry span
+        assert sorted(held) == sorted(RENDER)
     assert {a[2] for a in ann} == {"fr.render", *RENDER}
 
 

@@ -213,7 +213,8 @@ def test_summarize_reads_kernels_copies_and_the_ports_kernels():
     assert s["kernels"] == {"raster_shade": 0, "raster_select": 2,
                             "select_grad": 0, "raster_pos": 0,
                             "ctz_walk": 0, "bin_setup": 0,
-                            "bin_windows": 0, "raster_texture": 0}
+                            "bin_windows": 0, "raster_texture": 0,
+                            "geometry": 0}
 
 
 def test_busy_reading_fails_on_a_trace_without_device_events(monkeypatch):
@@ -299,7 +300,7 @@ def test_main_prints_the_stages(tmp_path, monkeypatch, capsys, cfg):
                            "stage fr.records", "stage fr.binning"}
     assert stages["stage fr.render"].startswith("stage fr.render: 2 spans,")
     assert stages["stage fr.geometry"].startswith(
-        "stage fr.geometry: 4 spans,")
+        "stage fr.geometry: 2 spans,")
     assert all(ln.endswith("device 0.000 ms, 0 launches, idle n/a")
                for ln in stages.values())
     assert lines[-1].startswith("trace written to")
