@@ -58,7 +58,13 @@ version's on the card, the posed fields within 1e-6 (the rotation's
 never where the coefficients require grad; and a short run of the
 benchmark's infer224.b256 and render512.b256 cells at batch 8 through it
 is correct under the cells' own limits. Every path whose forward runs
-under no_grad launches it once for each geometry it computes.
+under no_grad launches it once for each geometry it computes. The
+contract path at 224 px on the full mesh meets tests/test_tpu_parity.py's
+bar against the native oracle in both row orders; evaluate on the card
+meets the contract; the infer and track drivers launch exactly their
+kernels; gather_probe's forms equal the CPU's; dryrun_multichip(1) runs
+over NCCL; a checkpoint written from the card restores bit for bit into
+a trainer on the CPU and on the card.
 """
 
 import dataclasses
@@ -380,6 +386,15 @@ def test_contract_path_on_card_matches_oracle(card):
         assert np.all(np.isinf(z[~cov]))
 
 
+def test_evaluate_meets_the_contract_on_card(card):
+    """evaluate.run on the card (the training render under no_grad,
+    against the oracle): vertex MAE under 1e-3 and the contract met."""
+    from facerecon_tpu_torch import evaluate
+    report = evaluate.run(2, tiny=True, device=card)
+    assert report["backend"].startswith("cuda")
+    assert report["vertex_mae"] < 1e-3 and report["meets_contract"]
+
+
 def _walk_words(rng, n, live):
     """n mask words of `live` set bits each, at random places."""
     bits = np.zeros(n, np.int64)
@@ -547,7 +562,8 @@ def test_fold_on_card_matches_cpu_fold(card):
 
 def test_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
     """A training checkpoint written from the card (model, Adam and the
-    schedule after one step) restores into a CPU trainer bit for bit."""
+    schedule after one step) restores into a CPU trainer bit for bit, and
+    into a fresh trainer on the card too."""
     from facerecon_tpu_torch.checkpoint import CheckpointManager
     from facerecon_tpu_torch.train import restore_state, save_state
     cfg = tiny_config()
@@ -562,22 +578,24 @@ def test_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
     make_train_step(pipe)(state, images.to(card), lmk.to(card))
     mgr = CheckpointManager(str(tmp_path / "ck"))
     save_state(mgr, pipe, state)
-    cpu = make_train_pipeline(cfg, assets, device="cpu", depth=18, seed=5)
-    cpu_state = init_state(cpu, total_steps=20, seed=5)
-    restore_state(mgr, cpu, cpu_state)
-    assert cpu_state.step == 1
-    for name, t in pipe.model.state_dict().items():
-        got = cpu.model.state_dict()[name]
-        assert got.device.type == "cpu" and torch.equal(got, t.cpu()), name
-    for (_, a), (_, b) in zip(
-            sorted(state.optimizer.state_dict()["state"].items()),
-            sorted(cpu_state.optimizer.state_dict()["state"].items())):
-        for k in a:
-            assert torch.equal(a[k].cpu(), b[k].cpu()), k
-    assert (cpu_state.scheduler.state_dict()
-            == state.scheduler.state_dict())
-    assert (cpu_state.optimizer.param_groups[0]["lr"]
-            == state.optimizer.param_groups[0]["lr"])
+    for dev in ("cpu", card):
+        other = make_train_pipeline(cfg, assets, device=dev, depth=18, seed=5)
+        other_state = init_state(other, total_steps=20, seed=5)
+        restore_state(mgr, other, other_state)
+        assert other_state.step == 1
+        for name, t in pipe.model.state_dict().items():
+            got = other.model.state_dict()[name]
+            assert got.device.type == torch.device(dev).type, name
+            assert torch.equal(got.cpu(), t.cpu()), name
+        for (_, a), (_, b) in zip(
+                sorted(state.optimizer.state_dict()["state"].items()),
+                sorted(other_state.optimizer.state_dict()["state"].items())):
+            for k in a:
+                assert torch.equal(a[k].cpu(), b[k].cpu()), k
+        assert (other_state.scheduler.state_dict()
+                == state.scheduler.state_dict())
+        assert (other_state.optimizer.param_groups[0]["lr"]
+                == state.optimizer.param_groups[0]["lr"])
 
 
 def test_nccl_world1_train_step_equals_plain_step(card, tmp_path,
@@ -622,6 +640,13 @@ def test_nccl_world1_train_step_equals_plain_step(card, tmp_path,
     (p0, s0), (p1, s1) = runs
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
     assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+def test_dryrun_multichip_over_nccl_at_world_size_1(card):
+    """graft_entry.dryrun_multichip(1): one sharded train step in a
+    spawned rank over NCCL (file:// rendezvous) gives a finite loss."""
+    from facerecon_tpu_torch.graft_entry import dryrun_multichip
+    assert np.isfinite(dryrun_multichip(1, "cuda"))
 
 
 def test_joint_solve_first_kernel_calls_equal_plain(card, monkeypatch):
@@ -691,6 +716,41 @@ def test_bench_modes_launch_their_kernels(card, mode):
     assert bool(torch.isfinite(out).all())
     assert list(payload) == ["metric", "value", "unit", "vs_baseline"]
     assert payload["value"] > 0 and payload["vs_baseline"] is None
+
+
+@pytest.mark.parametrize("driver", ["infer", "infer_fused", "track",
+                                    "track_sequential"])
+def test_drivers_launch_their_kernels(card, tmp_path, driver):
+    """Each driver at tiny_config() through its run(), counted: infer
+    (--synthetic 2 --overlay --depth, BN and --fused) one K1 launch (the
+    synthetic render), one K2 (its reconstruct) and two geometry
+    launches; track, joint (4 frames x 3 refine steps) and --sequential
+    (2 frames x 2 steps a frame), K1 twice (the sequence's render and the
+    tracked one), K2 a step and once for the report, K3 a step, and four
+    geometry launches (the no_grad renders and the sequence's ground
+    truth); nothing else, and finite reports."""
+    from facerecon_tpu_torch import infer, track
+    before = dict(_build.LAUNCHES)
+    if driver.startswith("infer"):
+        rep = infer.run(infer.parse_args(
+            ["--tiny", "--synthetic", "2", "--out", str(tmp_path),
+             "--overlay", "--depth"]
+            + (["--fused"] if driver == "infer_fused" else [])))
+        want = _launches(raster_shade=1, raster_select=1, geometry=2)
+        assert np.isfinite(rep["landmark_rmse_px"])
+    else:
+        seq = driver == "track_sequential"
+        frames, steps = (2, 2) if seq else (4, 3)
+        rep = track.run(track.parse_args(
+            ["--tiny", "--frames", str(frames), "--refine-steps", str(steps)]
+            + (["--sequential"] if seq else [])))
+        n = frames * steps if seq else steps
+        want = _launches(raster_shade=2, raster_select=n + 1, select_grad=n,
+                         geometry=4)
+        assert np.isfinite([rep["loss_first"], rep["loss_last"]]).all()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == want
 
 
 def test_entry_launches_select_once(card, monkeypatch):
@@ -881,6 +941,22 @@ def test_probe_scatter_min_on_card_equals_cpu(card):
     ref = np.full(hw, SCA.INT32_MAX, np.int64)
     np.minimum.at(ref, idx[0].cpu().numpy(), zb[0].cpu().numpy())
     np.testing.assert_array_equal(got[0][:hw].cpu().numpy(), ref)
+
+
+def test_probe_gathers_on_card_equal_cpu(card):
+    """gather_probe's forms at batch 2 on the card against the same calls
+    on a CPU copy, on the first image: within 1e-6 x max |ref| (exact but
+    for the adjacency's sums)."""
+    from facerecon_tpu_torch.benchmarks import gather_probe as GAT
+    d = GAT.make_inputs(2, card)
+    with torch.no_grad():
+        for tag, form, x, i in GAT.CASES:
+            ix = d[i] if i != "bidx" else d[i][:1]
+            got = form(d[x][:1], ix)
+            want = form(d[x][:1].cpu(), ix.cpu())
+            for g, w in zip(got, want):
+                scale = float(w.abs().max())
+                assert float((g.cpu() - w).abs().max()) <= 1e-6 * scale, tag
 
 
 # --- the variant builds: K6's per-bit walk and K5's ablation switches ---
@@ -1277,3 +1353,78 @@ def test_geometry_wrapper_rejects_what_the_kernel_does_not_take(card,
     with pytest.raises(ValueError):
         vertex_pass(parts, c, bfm, cfg)
     assert dict(_build.LAUNCHES) == before
+
+
+# --- the contract path at full width against the native oracle ---
+
+def _depth_f64(vndc, faces, ids, px, py, size: int):
+    """The exact planar depth of face ids[k] at pixel center (px[k],
+    py[k]), in float64 from the float32 vertices: the oracle's screen
+    corners, edge functions and blend of the corner depths, unrounded."""
+    v = vndc.astype(np.float64)
+    x = (v[:, 0] + 1.0) * (size / 2.0)
+    y = (1.0 - v[:, 1]) * (size / 2.0)
+    f = faces[ids]
+    (x0, x1, x2), (y0, y1, y2), (z0, z1, z2) = (
+        [a[f[:, k]] for k in range(3)] for a in (x, y, v[:, 2]))
+    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    e0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
+    e1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
+    e2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
+    return (e0 * z0 + e1 * z1 + e2 * z2) / area
+
+
+@pytest.mark.parametrize("order", ["raster_rows", "identity"])
+def test_contract_path_at_224px_meets_the_native_oracle(card, full_mesh,
+                                                        order):
+    """rasterize_batch (K4, one launch a call) at 224 px on the full mesh,
+    seeds 7 and 8 (batch 4, sample_coeffs scale 0.3), in the asset's
+    raster row order (7 column tiles) and in the identity order (one
+    224-px column), against the native oracle with
+    tests/test_tpu_parity.py's bar: tri_id mismatches at most 5e-5 of
+    the covered pixels, each a depth tie (|dz| < 1e-3) on a pixel both
+    cover; where tri_id agrees, bary within 5e-5 and zbuf within 1e-4
+    relative of the oracle's, and within 2e-6 relative of the exact
+    float64 depth (224-px readings 8.8e-6, 1.5e-5 and 4.5e-7)."""
+    from facerecon_tpu_torch.utils import native_oracle
+    native_oracle.require()
+    cfg, bfm = full_mesh
+    s = cfg.image_size
+    faces = bfm.faces.cpu().numpy()
+    okw = dict(n_cols=1)
+    if order == "raster_rows":
+        okw = dict(n_cols=cfg.raster_cols, row_faces=bfm.raster_rows,
+                   row_id=bfm.raster_row_id)
+    jj, ii = np.meshgrid(np.arange(s) + 0.5, np.arange(s) + 0.5)
+    mism = cov = bad_depth = 0
+    bary_err = z_rel = z_exact = 0.0
+    for seed in (7, 8):
+        c = split_coeff(torch.as_tensor(sample_coeffs(
+            np.random.default_rng(seed), cfg, 4, scale=0.3), device=card),
+            cfg)
+        vndc = coeffs_to_geometry(c, bfm, cfg).verts_ndc
+        before = _build.LAUNCHES["raster_pos"]
+        tid_t, bary_t, z_t = (t.cpu().numpy() for t in R.rasterize_batch(
+            vndc, bfm.faces, height=s, width=s, cfg=cfg, **okw))
+        assert _build.LAUNCHES["raster_pos"] == before + 1
+        vndc = vndc.cpu().numpy()
+        for b in range(4):
+            tid_o, bary_o, z_o = native_oracle.rasterize(vndc[b], faces, s, s)
+            covered = (tid_o >= 0) | (tid_t[b] >= 0)
+            cov += int(covered.sum())
+            d = covered & (tid_t[b] != tid_o)
+            mism += int(d.sum())
+            both = (tid_o >= 0) & (tid_t[b] >= 0)
+            tie = both & (np.abs(np.where(both, z_o, 0.0)
+                                 - np.where(both, z_t[b], 0.0)) < 1e-3)
+            bad_depth += int((d & ~tie).sum())
+            same = both & ~d
+            bary_err = max(bary_err, float(np.abs(
+                bary_t[b][same] - bary_o[same]).max()))
+            zt, zo = z_t[b][same], z_o[same]
+            z_rel = max(z_rel, float((np.abs(zt - zo) / zo).max()))
+            exact = _depth_f64(vndc[b], faces, tid_o[same], jj[same],
+                               ii[same], s)
+            z_exact = max(z_exact, float((np.abs(zt - exact) / exact).max()))
+    assert cov > 0 and mism <= 5e-5 * cov and bad_depth == 0
+    assert bary_err <= 5e-5 and z_rel <= 1e-4 and z_exact <= 2e-6

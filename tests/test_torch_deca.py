@@ -428,8 +428,9 @@ def test_the_graphs_go_with_their_pack(card, full_arrays):
 def test_reconstruct_at_batch_8_on_the_card(card, full_arrays):
     """Pipeline.reconstruct on DECA's config (the bf16 fused ResNet-50 and
     its float32 two-layer head) at batch 8, its render judged against
-    the reference at the cell's limits; the textured kernel launches once
-    a call."""
+    the reference at the cell's limits; the textured kernel and each
+    binning kernel launch once a call, and no other kernel of the
+    port."""
     cfg = deca_config()
     pipe = _reconstruct_pipe(cfg, flame_assets(full_arrays), True, card,
                              torch.bfloat16, 50)
@@ -439,7 +440,8 @@ def test_reconstruct_at_batch_8_on_the_card(card, full_arrays):
     codes, _, out = pipe.reconstruct(images)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    assert launched["raster_texture"] == 1 and launched["raster_shade"] == 0
+    assert launched == dict.fromkeys(_build.KERNELS, 0) | {
+        "raster_texture": 1, "bin_setup": 1, "bin_windows": 1}
     prog = {"codes": codes, "verts": out.geometry.verts_world,
             "landmarks": out.geometry.landmarks2d,
             "bins": out.geometry.contour_bin, "image": out.image,

@@ -16,8 +16,7 @@ CPU, against the reference's benchmarks/profile_trace.py:
     the reference's line, and raises without a card unless asked for the
     CPU;
   - the trace reader (timeline, summarize) on hand-made intervals and
-    events, and chip_smoke's busy reading fails on a trace that holds no
-    device event.
+    events.
 On the CPU the reference renders through rasterize_tiled (Pallas does not
 run there) and the port through the plain versions of its kernels.
 """
@@ -215,19 +214,6 @@ def test_summarize_reads_kernels_copies_and_the_ports_kernels():
                             "ctz_walk": 0, "bin_setup": 0,
                             "bin_windows": 0, "raster_texture": 0,
                             "geometry": 0}
-
-
-def test_busy_reading_fails_on_a_trace_without_device_events(monkeypatch):
-    """chip_smoke._busy_ms reads through summarize: a trace with no
-    device event raises instead of reading 0% busy."""
-    import chip_smoke
-    from torch import profiler
-    real = profiler.profile
-    monkeypatch.setattr(profiler, "profile", lambda activities: real(
-        activities=[profiler.ProfilerActivity.CPU]))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    with pytest.raises(ValueError, match="no device event"):
-        chip_smoke._busy_ms(lambda: torch.ones(8, 8) @ torch.ones(8, 8))
 
 
 def test_summarize_reads_the_ports_stages():
