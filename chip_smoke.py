@@ -30,7 +30,10 @@ Phases (any failed check raises, and the script exits non-zero):
      at the same two batches on the basis products of sample_coeffs
      faces (shape and texture bit for bit, the rest within GEO_ATOL, the
      landmarks within GEO_ATOL relative), with the whole layer's ms and
-     its device ops'; DECA's textured kernel (csrc/raster_texture.cu) on
+     its device ops'; the record kernel (csrc/records.cu, through
+     ops/render.pack_render_records and pack_texture_records) at the
+     headline's 128 at 224 px, render512's 32 at 512 px and DECA's 256
+     with the UV rows (bit for bit, as int32 bits); DECA's textured kernel (csrc/raster_texture.cu) on
      the inputs of the benchmark cell deca-render224.b512 (its
      configuration's seeded FLAME stand-ins, 256 codes from the cell's
      sampler at seed TEX_SEED, 224 px, tile_h 4 x 7 columns; tri_id
@@ -44,7 +47,8 @@ Phases (any failed check raises, and the script exits non-zero):
      (the walked setup chunks, the winners' record sectors). The
      binning's bound is the padded setup written and the vertices read;
      the geometry's the bases read, the six planes and the landmarks
-     written, and the basis products' FMAs; the textured kernel's
+     written, and the basis products' FMAs; the records' the record
+     written and the two (B, N, 3) planes read; the textured kernel's
      perfbench/work_flame.texture_work (the bytes read and written once,
      the distinct albedo texels the covered pixels' bilinear footprints
      read, and the tests the inputs need).
@@ -128,6 +132,8 @@ TEX_BATCH = 256          # its microbatch,
 TEX_SEED = 22            # and the seed of the codes
 GEO_RUNS = (("headline", 224, MICRO), ("render512", 512, 32))
 GEO_ATOL = 1e-6          # geometry kernel vs its plain version on the card
+# the record kernel's BFM shapes: (where, px, batch); DECA's is TEX_CELL's
+REC_RUNS = (("headline", 224, MICRO), ("render512", 512, 32))
 DEVICE = "cuda"
 
 
@@ -808,6 +814,92 @@ def check_geometry(cfg, assets):
     return result
 
 
+def _records_inputs(cfg, assets):
+    """Each REC_RUNS path's record inputs on the card: (where, batch,
+    size, pack, plain, args), args the pack's; the BFM's from the
+    geometry kernel (its vertices and radiance), DECA's from TEX_CELL's
+    configuration and TEX_BATCH codes of its sampler (FLAME's vertices
+    and world normals)."""
+    from facerecon_tpu_torch.data.synthetic import sample_coeffs
+    from facerecon_tpu_torch.ops import flame as FL
+    from facerecon_tpu_torch.ops import render as RE
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry, device_bfm
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    from facerecon_tpu_torch.utils.flame import flame_assets
+    from perfbench import spec
+    from perfbench.kinds import flame_render as FR
+    bfm = device_bfm(assets, DEVICE)
+    pad = R.padded_rows(bfm.raster_rows.shape[0])
+    for where, size, batch in REC_RUNS:
+        scfg = dataclasses.replace(cfg, image_size=size,
+                                   focal=cfg.focal * size / cfg.image_size)
+        c = split_coeff(torch.as_tensor(sample_coeffs(
+            np.random.default_rng(4), scfg, batch), device=DEVICE), scfg)
+        with torch.no_grad():
+            geom = coeffs_to_geometry(c, bfm, scfg)
+        yield (where, batch, size, RE.pack_render_records,
+               RE.pack_render_records_reference,
+               (geom.verts_ndc, geom.radiance, bfm.raster_rows, size, size,
+                pad))
+        del geom, c
+    del bfm
+    cfgf = spec.cell(TEX_CELL)["config_file"]
+    dcfg = FR.port_config(cfgf, TEX_BATCH)
+    s = dcfg.image_size
+    dfl = FL.device_flame(flame_assets(FR.arrays(cfgf), s), DEVICE,
+                          dcfg.n_tex, dcfg.uv_size)
+    codes = torch.from_numpy(FR.sample_codes(np.random.default_rng(
+        TEX_SEED), cfgf["sizes"], TEX_BATCH)).to(DEVICE)
+    with torch.no_grad():
+        geo = FL.flame_geometry(split_coeff(codes, dcfg), dfl, dcfg,
+                                image_size=s)
+    yield (TEX_CELL, TEX_BATCH, s, RE.pack_texture_records,
+           RE.pack_texture_records_reference,
+           (geo.verts_ndc, geo.normals, dfl, s, s,
+            R.padded_rows(dfl.raster_rows.shape[0])))
+
+
+def check_records(cfg, assets):
+    """The record kernel (csrc/records.cu, through
+    ops/render.pack_render_records and pack_texture_records) at each
+    REC_RUNS shape and at DECA's cell: held once against the plain
+    version (the eager pack) on the inputs it is timed on, as int32 bits
+    over every field and padded row; then timed with CUDA events beside
+    the plain version, and bounded by the record written and the two
+    (B, N, 3) planes read. Returns the kernels line's numbers at the
+    headline's shape."""
+    result = {}
+    for where, batch, size, pack, plain, args in _records_inputs(cfg,
+                                                                 assets):
+        with torch.no_grad():
+            got = pack(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad = int((got.view(torch.int32)
+                           != want.view(torch.int32)).sum())
+                raise AssertionError(f"records ({where}): {bad} words differ "
+                                     f"from the plain version")
+            del want
+            ms = _time_ms(lambda: pack(*args), 20)
+            plain_ms = _time_ms(lambda: plain(*args), REPS)
+        bound_ms, bound_by = _bound(_nbytes(got, args[0], args[1]), 0,
+                                    f"records ({where})")
+        print(f"records {where}: batch {batch}, {size} px, "
+              f"{got.shape[2]} padded rows, bit for bit the plain version; "
+              f"{ms:.4f} ms a call, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.1f}% of it) on {_card_line()}")
+        if where == "headline":
+            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=0.0,
+                          library_ms=None)
+        del got, args
+    torch.cuda.empty_cache()
+    return result
+
+
 def check_texture():
     """DECA's textured kernel on TEX_CELL's inputs: the configuration's
     FLAME stand-ins and TEX_BATCH codes from the cell's sampler, through
@@ -1011,6 +1103,7 @@ def main() -> int:
                                           rng)[0]
     measured["binning"] = _timed("binning", check_binning, cfg, assets)
     measured["geometry"] = _timed("geometry", check_geometry, cfg, assets)
+    measured["records"] = _timed("records", check_records, cfg, assets)
     measured["raster_texture"] = _timed("texture", check_texture)
     _timed("floor", check_floor, cfg, assets)
     measured["ctz_walk"] = _timed("ctz_walk", check_ctz_walk)
@@ -1026,7 +1119,9 @@ def main() -> int:
         "raster_texture": "none (the JAX package has no DECA/FLAME path)",
         "binning": "none (XLA-fused jnp: facerecon_tpu/ops/binning.py:228)",
         "geometry": "none (XLA-fused jnp: facerecon_tpu/ops/geometry.py "
-                    "coeffs_to_geometry, facerecon_tpu/ops/sh.py illuminate)"}
+                    "coeffs_to_geometry, facerecon_tpu/ops/sh.py illuminate)",
+        "records": "none (XLA-fused jnp: facerecon_tpu/ops/render.py "
+                   "_render_fields, _stack24)"}
     kernels = [dict(
         name=name, route="cuda",
         source=f"facerecon_tpu_torch/csrc/{name}.cu",

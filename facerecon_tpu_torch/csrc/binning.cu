@@ -58,6 +58,8 @@
 
 #include <cuda_runtime.h>
 
+#include "setup_forms.cuh"   // the screen transform and the affine forms
+
 namespace {
 
 constexpr int kChunk = 128;        // raster rows a chunk (a setup block)
@@ -103,32 +105,18 @@ bin_setup_kernel(const float* __restrict__ verts,
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const float* p = vb + faces[static_cast<size_t>(r) * 3 + k] * 3;
-      x[k] = (p[0] + 1.0f) * half_w;          // binning.ndc_to_screen
-      y[k] = (1.0f - p[1]) * half_h;
+      setup::to_screen(p, half_w, half_h, x[k], y[k]);
       z[k] = p[2];
     }
-    const float u1 = x[1] - x[0];
-    const float v1 = y[1] - y[0];
-    const float u2 = x[2] - x[0];
-    const float v2 = y[2] - y[0];
-    const float area = u1 * v2 - v1 * u2;
-    bool dead = fabsf(area) <= 1e-12f;
-    if (cull) dead = dead || area > 0.0f;
-    const float inv = dead ? 0.0f : __frcp_rn(area);
-    float wa0 = (v1 - v2) * inv;
-    float wb0 = (u2 - u1) * inv;
-    float wc0 = (u1 * v2 - u2 * v1) * inv;
-    float wa1 = v2 * inv;
-    float wb1 = -u2 * inv;
-    float wc1 = 0.0f;
+    setup::Forms fm = setup::affine_forms(x, y, cull != 0);
     // the depth forms take the weights before a dead row's are zeroed
     // (+-0 products: the plain version's signs)
-    const float za = wa0 * (z[0] - z[2]) + wa1 * (z[1] - z[2]);
-    const float zb = wb0 * (z[0] - z[2]) + wb1 * (z[1] - z[2]);
-    if (dead) {
-      wc0 = kNeg;
-      wc1 = kNeg;
-      wa0 = wb0 = wa1 = wb1 = 0.0f;
+    const float za = fm.wa0 * (z[0] - z[2]) + fm.wa1 * (z[1] - z[2]);
+    const float zb = fm.wb0 * (z[0] - z[2]) + fm.wb1 * (z[1] - z[2]);
+    if (fm.dead) {
+      fm.wc0 = kNeg;
+      fm.wc1 = kNeg;
+      fm.wa0 = fm.wb0 = fm.wa1 = fm.wb1 = 0.0f;
     } else {
       ymin = fminf(fminf(y[0], y[1]), y[2]);
       ymax = fmaxf(fmaxf(y[0], y[1]), y[2]);
@@ -136,8 +124,8 @@ bin_setup_kernel(const float* __restrict__ verts,
       xmax = fmaxf(fmaxf(x[0], x[1]), x[2]);
     }
     const float f[kFields] = {
-        wa0, wb0, wc0, wa1, wb1, wc1, za, zb, z[0], x[0], y[0], ymin,
-        static_cast<float>(row_id[r]), 0.0f, 0.0f, 0.0f};
+        fm.wa0, fm.wb0, fm.wc0, fm.wa1, fm.wb1, fm.wc1, za, zb, z[0], x[0],
+        y[0], ymin, static_cast<float>(row_id[r]), 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int k = 0; k < kFields; ++k) {
       out[static_cast<size_t>(k) * rows] = f[k];

@@ -40,7 +40,7 @@ import torch
 
 KERNELS = ("raster_shade", "raster_select", "select_grad", "raster_pos",
            "ctz_walk", "bin_setup", "bin_windows", "raster_texture",
-           "geometry")
+           "geometry", "records")
 # the source, csrc/<source>.cu, of each kernel not in a file of its own
 # name
 SOURCES = {"bin_setup": "binning", "bin_windows": "binning"}
@@ -55,7 +55,8 @@ SYMBOLS = {"raster_shade": "raster_shade_kernel",
            "bin_setup": "bin_setup_kernel",
            "bin_windows": "bin_windows_kernel",
            "raster_texture": "raster_texture_kernel",
-           "geometry": "geometry_kernel"}
+           "geometry": "geometry_kernel",
+           "records": "records_kernel"}
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -41,12 +41,13 @@ keeps (found by running F.interpolate on the texel indices), so
 `decode_albedo` is that function with a quarter of the work. It returns
 (B, S, S, 3), RGB last, the layout the texture kernel reads.
 
-On the card the render replays FLAME's geometry and the textured records
-from CUDA graphs (`graphed`): they are ~150 small launches a microbatch,
-whose host cost would otherwise come near the device time of the whole
-render (~5.6 ms for 256 faces at 224 px on an H100) and let the host set
-the pace. The graphs run the same kernels on the same inputs, so the
-results are the eager path's.
+On the card the render replays FLAME's geometry from a CUDA graph
+(`graphed`): it is over a hundred small launches a microbatch, whose
+host cost would otherwise come near the device time of the whole render
+(~5.6 ms for 256 faces at 224 px on an H100) and let the host set the
+pace. The graph runs the same kernels on the same inputs, so the results
+are the eager path's. The textured records are one launch of the record
+kernel (ops/render.pack_records) and need no graph.
 """
 
 from __future__ import annotations

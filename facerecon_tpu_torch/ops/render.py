@@ -7,14 +7,19 @@ face is composited over the background. Two paths:
 - inference=True: forward only. The kernel K1 (`rasterize_shaded`)
   shades in-kernel. Under no_grad the geometry comes from the geometry
   kernel with its radiance (ops/geometry.vertex_pass), so there is no
-  separate SH pass.
+  separate SH pass, and the records from the record kernel
+  (`pack_records`, csrc/records.cu: one launch in place of ~40 eager
+  ops). Both record packs take the kernel where autograd records
+  nothing on their inputs and they lie on the card, and their plain
+  versions (`*_reference`, _render_fields + _stack24) elsewhere.
 - inference=False: the differentiable training render. K2
   (`rasterize_select`) returns each pixel's winner record fields, and
   `_shade_from_sel` rebuilds color, barycentrics and the skin mask from
   them with differentiable ops; K3 is the select's adjoint. Gradients
   reach the vertices through the records' affine forms (dL/dV_xy) and
   the radiance corners; tri_id is frozen and depth gets none (SURVEY
-  §9.6).
+  §9.6). Its records are always the eager ops (_render_fields with the
+  corner adjacency, _stack24 with the skin rows).
 
 Given a FLAME config, DECA's codes and FLAME device assets
 (ops/flame.DeviceFLAME), `render_coeffs` renders DECA's coarse model
@@ -31,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from facerecon_tpu_torch.config import FaceReconConfig, is_flame
+from facerecon_tpu_torch.ops import _build
 from facerecon_tpu_torch.ops import flame as flame_ops
 from facerecon_tpu_torch.ops import rasterize
 from facerecon_tpu_torch.ops import sh as sh_ops
@@ -41,6 +47,8 @@ from facerecon_tpu_torch.ops.geometry import (DeviceBFM, Geometry,
                                               take_corner_planes)
 from facerecon_tpu_torch.profile_trace import span
 from facerecon_tpu_torch.utils.coeffs import Coeffs
+
+_N_FIELDS = 17          # fields _render_fields computes; the tail follows
 
 
 def _render_fields(verts_ndc, radiance, faces, height: int, width: int,
@@ -89,12 +97,80 @@ def _stack24(fields, pad_rows: int, skin=None):
     return rec
 
 
+def pack_records(verts_ndc, attr, rows, height: int, width: int,
+                 pad_rows: int, tail=None):
+    """The record kernel (`csrc/records.cu`, one launch): the (B, 24,
+    pad_rows) f32 field-major record [attribute corners 9 (corner-major)
+    | affine forms 6 | anchor x0, y0 | tail | zero], zero past the F' raster
+    rows, bit for bit what _render_fields + _stack24 give. attr (B, N, 3)
+    is the radiance (BFM) or the world normals (DECA); tail, where given,
+    is a static (T, F') f32 block of fields 17..17+T-1, T <= 7. It has no
+    backward. Everything on the card, f32 and contiguous, the rows int64,
+    or it raises."""
+    dev = verts_ndc.device
+    if dev.type != "cuda":
+        raise ValueError(f"the record kernel runs on the card, not {dev}")
+    if verts_ndc.dim() != 3 or rows.dim() != 2:
+        raise ValueError(f"expected verts_ndc (B, N, 3) and rows (F', 3), "
+                         f"got {tuple(verts_ndc.shape)} and "
+                         f"{tuple(rows.shape)}")
+    bsz, n_verts = verts_ndc.shape[:2]
+    f = rows.shape[0]
+    f32 = torch.float32
+    want = {"verts_ndc": (verts_ndc, f32, (bsz, n_verts, 3)),
+            "attr": (attr, f32, (bsz, n_verts, 3)),
+            "rows": (rows, torch.int64, (f, 3))}
+    n_tail = 0
+    if tail is not None:
+        n_tail = tail.shape[0] if tail.dim() == 2 else 0
+        if not 1 <= n_tail <= rasterize._FIELDS - _N_FIELDS:
+            raise ValueError(f"tail: expected 1 to "
+                             f"{rasterize._FIELDS - _N_FIELDS} rows of "
+                             f"{f}, got {tuple(tail.shape)}")
+        want["tail"] = (tail, f32, (n_tail, f))
+    _build.check_tensors(dev, want)
+    if pad_rows < f or bsz > 65535:
+        raise ValueError(f"expected F' = {f} <= pad_rows = {pad_rows} and "
+                         f"at most 65535 images, got {bsz}")
+    rec = torch.empty((bsz, rasterize._FIELDS, pad_rows), dtype=f32,
+                      device=dev)
+    if bsz and pad_rows:
+        # without a tail the kernel reads none: any pointer will do
+        _build.launch("records", dev,
+                      (verts_ndc, attr, rows,
+                       tail if tail is not None else rec, rec),
+                      (bsz, n_verts, f, pad_rows, n_tail, height, width))
+    return rec
+
+
+def _records_kernel_takes(verts_ndc, attr) -> bool:
+    """Whether the record kernel builds this record: the tensors on the
+    card and autograd recording nothing on them (the kernel has no
+    backward)."""
+    return (_build.on_card(verts_ndc.device)
+            and not autograd_records(verts_ndc, attr))
+
+
 def pack_render_records(verts_ndc, radiance, faces, height: int, width: int,
                         pad_rows: int):
-    """Per-face render attributes, field-major (B, 24, pad_rows) f32 —
-    _render_fields + _stack24. The kernels read the winner's f32 fields
-    directly (the reference's hi/lo bf16 split exists only for the TPU's
-    bf16 matrix unit)."""
+    """Per-face render attributes, field-major (B, 24, pad_rows) f32:
+    [radiance corners 9 | affine forms 6 | anchor x0, y0 | zero 7], zero
+    past the F' rows. The record kernel (pack_records) where it takes
+    them (on the card, autograd recording nothing), else the plain
+    version. The kernels read the winner's f32 fields directly (the
+    reference's hi/lo bf16 split exists only for the TPU's bf16 matrix
+    unit)."""
+    if _records_kernel_takes(verts_ndc, radiance):
+        return pack_records(verts_ndc, radiance, faces, height, width,
+                            pad_rows)
+    return pack_render_records_reference(verts_ndc, radiance, faces, height,
+                                         width, pad_rows)
+
+
+def pack_render_records_reference(verts_ndc, radiance, faces, height: int,
+                                  width: int, pad_rows: int):
+    """Plain PyTorch version of pack_render_records, on any device and
+    differentiable: _render_fields + _stack24."""
     return _stack24(_render_fields(verts_ndc, radiance, faces, height,
                                    width), pad_rows)
 
@@ -104,8 +180,20 @@ def pack_texture_records(verts_ndc, normals, flame, height: int, width: int,
     """DECA's per-face render attributes, field-major (B, 24, pad_rows)
     f32: [world-normal corners 9 (corner-major) | affine forms 6 | anchor
     x0, y0 | UV corners 6 (grid_sample coordinates, corner-major) | zero
-    1] over the raster rows: _render_fields with the normals in the
-    radiance's place, then the static UV rows."""
+    1] over the raster rows: the record kernel with the UV rows as its
+    tail where it takes them, else the plain version."""
+    if _records_kernel_takes(verts_ndc, normals):
+        return pack_records(verts_ndc, normals, flame.raster_rows, height,
+                            width, pad_rows, tail=flame.raster_uv)
+    return pack_texture_records_reference(verts_ndc, normals, flame, height,
+                                          width, pad_rows)
+
+
+def pack_texture_records_reference(verts_ndc, normals, flame, height: int,
+                                   width: int, pad_rows: int):
+    """Plain PyTorch version of pack_texture_records, on any device:
+    _render_fields with the normals in the radiance's place, then the
+    static UV rows."""
     rec = _stack24(_render_fields(verts_ndc, normals, flame.raster_rows,
                                   height, width), pad_rows)
     rec[:, 17:23, :flame.raster_uv.shape[1]] = flame.raster_uv
@@ -210,9 +298,9 @@ def render_flame(codes, flame, cfg: FaceReconConfig,
     (fr.albedo), the textured records (fr.records), then binning and the
     textured raster; the image is albedo x SH shading over the face,
     composited over `background` (zeros by default, as DECA's). On the
-    card the geometry and the records replay CUDA graphs
-    (ops/flame.graphed); the geometry returned is copied out of its
-    graph."""
+    card the geometry replays a CUDA graph (ops/flame.graphed; the
+    geometry returned is copied out of it), and the records are one
+    launch of the record kernel."""
     h = w = image_size or cfg.image_size
     pad_rows = rasterize.padded_rows(flame.raster_rows.shape[0])
 
@@ -221,9 +309,6 @@ def render_flame(codes, flame, cfg: FaceReconConfig,
             codes._replace(shape=shape, exp=exp, pose=pose, cam=cam), flame,
             cfg, image_size=h)
 
-    def records_fn(verts_ndc, normals):
-        return (pack_texture_records(verts_ndc, normals, flame, h, w,
-                                     pad_rows),)
     with torch.no_grad():
         with span("fr.flame"):
             geom = flame_ops.graphed(f"geometry{h}", geometry_fn, flame,
@@ -234,8 +319,8 @@ def render_flame(codes, flame, cfg: FaceReconConfig,
         with span("fr.albedo"):
             albedo = flame_ops.decode_albedo(codes.tex, flame)
         with span("fr.records"):
-            (records,) = flame_ops.graphed(f"records{h}", records_fn, flame,
-                                           geom.verts_ndc, geom.normals)
+            records = pack_texture_records(geom.verts_ndc, geom.normals,
+                                           flame, h, w, pad_rows)
         tri_id, color, bary = rasterize.rasterize_textured(
             records, albedo, codes.light.reshape(-1, 9, 3).contiguous(),
             flame.sh_factor, geom.verts_ndc, flame.faces, height=h, width=w,

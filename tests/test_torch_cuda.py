@@ -58,7 +58,14 @@ version's on the card, the posed fields within 1e-6 (the rotation's
 never where the coefficients require grad; and a short run of the
 benchmark's infer224.b256 and render512.b256 cells at batch 8 through it
 is correct under the cells' own limits. Every path whose forward runs
-under no_grad launches it once for each geometry it computes. The
+under no_grad launches it once for each geometry it computes. The record
+kernel (csrc/records.cu, through ops/render.pack_render_records) gives
+the plain version's record bit for bit (int32 bits over all 24 fields
+and every padded row) at 224 px at batch 128 and 1 and at 512 px at
+batch 32 on the full mesh, on _kernel_inputs' cases, and on dead,
+grid-snapped and off-screen rows; one launch a call, none where autograd
+records, one for each K1 launch of a path; its wrapper refuses what it
+does not take; and the two cells' runs at batch 8 go through it. The
 contract path at 224 px on the full mesh meets tests/test_tpu_parity.py's
 bar against the native oracle in both row orders; evaluate on the card
 meets the contract; the infer and track drivers launch exactly their
@@ -101,12 +108,15 @@ def card():
 
 def _launches(**counts):
     """A path's launch counts: the named kernels' counts, 0 for the rest,
-    and one launch of each binning kernel for each K1, K2, K4 and textured
-    launch (each rasterizes windows that band_windows binned for it)."""
+    one launch of each binning kernel for each K1, K2, K4 and textured
+    launch (each rasterizes windows that band_windows binned for it), and
+    one of the record kernel for each K1 and textured launch (the paths
+    here run those under no_grad; K2's records are the eager ops)."""
     want = dict.fromkeys(_build.KERNELS, 0) | counts
     n = (want["raster_shade"] + want["raster_select"] + want["raster_pos"]
          + want["raster_texture"])
-    return want | {"bin_setup": n, "bin_windows": n}
+    return want | {"bin_setup": n, "bin_windows": n,
+                   "records": want["raster_shade"] + want["raster_texture"]}
 
 
 def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
@@ -120,6 +130,24 @@ def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
     away moves the last image's face out of frame; turned turns it 2.5
     rad about the vertical axis (mostly back faces show); cull bins with
     cull_backfaces."""
+    cfg, assets, geom, rad, rows, rid = _kernel_geometry(
+        card, order, batch, tile_h, n_cols, tz, away, turned, size)
+    s = cfg.image_size
+    rec = pack_render_records(geom.verts_ndc, rad, rows, s, s,
+                              R.padded_rows(rows.shape[0]))
+    win = R.band_windows(geom.verts_ndc, rows, rid, s, s, cfg.tile_h,
+                         cfg.raster_cols, cull)
+    if order == "shuffled":
+        assert int(win.bn.max()) > 64
+    kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+              n_faces=assets.n_faces)
+    return cfg, win, rec, kw
+
+
+def _kernel_geometry(card, order, batch=3, tile_h=None, n_cols=None,
+                     tz=None, away=False, turned=False, size=None):
+    """_kernel_inputs' geometry before its records and windows: (cfg,
+    assets, geometry, radiance, raster rows, row ids)."""
     cfg = tiny_config(n_vertices=6000)
     cfg = dataclasses.replace(cfg, tile_h=tile_h or cfg.tile_h,
                               raster_cols=n_cols or cfg.raster_cols)
@@ -144,16 +172,7 @@ def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,
         rid = torch.as_tensor(np.random.default_rng(3).permutation(
             assets.n_faces), device=card)
         rows = bfm.faces[rid]
-    s = cfg.image_size
-    rec = pack_render_records(geom.verts_ndc, rad, rows, s, s,
-                              R.padded_rows(rows.shape[0]))
-    win = R.band_windows(geom.verts_ndc, rows, rid, s, s, cfg.tile_h,
-                         cfg.raster_cols, cull)
-    if order == "shuffled":
-        assert int(win.bn.max()) > 64
-    kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
-              n_faces=assets.n_faces)
-    return cfg, win, rec, kw
+    return cfg, assets, geom, rad, rows, rid
 
 
 @pytest.mark.parametrize("order", ["raster_rows", "shuffled"])
@@ -1317,16 +1336,17 @@ def test_geometry_kernel_only_where_autograd_records_nothing(card,
 def test_geometry_kernel_path_is_correct_end_to_end(card, name):
     """A short run of the benchmark's cell at batch 8 (the cell's
     configuration, its traffic's batch and microbatch cut to 8), through
-    the geometry kernel: correct against the plain reference under the
-    cell's own limits."""
+    the geometry kernel and the record kernel: correct against the plain
+    reference under the cell's own limits."""
     import copy
     from perfbench import run, spec
     cell = copy.deepcopy(spec.cell(name))
     cell["traffic"].update(batch=8, microbatch=8)
-    before = _build.LAUNCHES["geometry"]
+    before = dict(_build.LAUNCHES)
     r = run.run_cell(cell, 2 ** 31 + 79, 0.5, False, card)
     assert r["correct"], r["compared"]
-    assert _build.LAUNCHES["geometry"] > before
+    for kernel in ("geometry", "records"):
+        assert _build.LAUNCHES[kernel] > before[kernel], kernel
 
 
 @pytest.mark.parametrize("case", ["parts_f64", "parts_strided", "gamma_cols",
@@ -1352,6 +1372,139 @@ def test_geometry_wrapper_rejects_what_the_kernel_does_not_take(card,
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError):
         vertex_pass(parts, c, bfm, cfg)
+    assert dict(_build.LAUNCHES) == before
+
+
+# --- the record kernel (csrc/records.cu) against its plain version ---
+
+# path -> (size, batch): the inference microbatch, a single frame, and
+# render512's microbatch
+_REC_SHAPES = {"infer224": (224, 128), "frame224": (224, 1),
+               "render512": (512, 32)}
+
+
+def _hold_records(vndc, attr, rows, size):
+    """pack_render_records on the card, under no_grad: one launch of the
+    record kernel and nothing else, and the record bit for bit the plain
+    version's, run on the card (int32 bits over all 24 fields and every
+    padded row, signed zeros included)."""
+    from facerecon_tpu_torch.ops.render import pack_render_records_reference
+    pad = R.padded_rows(rows.shape[0])
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        got = pack_render_records(vndc, attr, rows, size, size, pad)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: int(k == "records") for k in _build.KERNELS}
+    ref = pack_render_records_reference(vndc, attr, rows, size, size, pad)
+    assert got.shape == ref.shape == (vndc.shape[0], 24, pad)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("path", list(_REC_SHAPES))
+def test_record_kernel_equals_plain_at_path_shapes(card, full_mesh, path):
+    """The record kernel at each path's shape on the full mesh (70,688
+    faces in 83,968 padded rows), on the geometry kernel's vertices and
+    radiance: bit for bit the plain version."""
+    size, batch = _REC_SHAPES[path]
+    cfg, bfm, c, parts = _geo_inputs(full_mesh, size, batch)
+    with torch.no_grad():
+        geom = coeffs_to_geometry(c, bfm, cfg)
+    rec = _hold_records(geom.verts_ndc, geom.radiance, bfm.raster_rows, size)
+    f = bfm.raster_rows.shape[0]
+    assert bool(rec[:, 9, :f].ne(0).any()) and not bool(rec[:, :, f:].any())
+
+
+@pytest.mark.parametrize("case", ["raster_rows", "shuffled", "near", "away",
+                                  "turned"])
+def test_record_kernel_on_kernel_inputs_cases(card, case):
+    """On _kernel_inputs' cases (the raster row order with its [0, 0, 0]
+    pad rows, a shuffled order, faces 1 from the camera, a face out of
+    frame, one turned to show its back): bit for bit the plain
+    version."""
+    kw = {"near": dict(tz=9.0), "away": dict(away=True),
+          "turned": dict(turned=True)}.get(case, {})
+    order = "shuffled" if case == "shuffled" else "raster_rows"
+    cfg, _, geom, rad, rows, _ = _kernel_geometry(card, order, **kw)
+    _hold_records(geom.verts_ndc, rad, rows, cfg.image_size)
+
+
+def test_record_kernel_on_dead_snapped_and_off_screen_rows(card,
+                                                           full_mesh):
+    """The binning test's images (5,000 faces collapsed to a point or an
+    edge, a 1/16 NDC grid, half off the right edge, wholly off screen) on
+    the raster row order: bit for bit the plain version, the dead rows'
+    forms the eager ops' signed zeros (both signs occur)."""
+    bfm = full_mesh[1]
+    vndc = _full_verts(full_mesh, 224, 4, seed=2).clone()
+    f = bfm.raster_rows[:5000]
+    vndc[0, f[:, 1]] = vndc[0, f[:, 0]]
+    vndc[1, :, :2] = torch.round(vndc[1, :, :2] * 16.0) / 16.0
+    vndc[2, :, 0] += 1.0
+    vndc[3, :, 0] += 10.0
+    rad = torch.rand(vndc.shape, generator=torch.Generator().manual_seed(3)
+                     ).to(card)
+    rec = _hold_records(vndc, rad, bfm.raster_rows, 224)
+    forms = rec[0, 9:15, :bfm.raster_rows.shape[0]]
+    dead = (forms == 0).all(dim=0)
+    assert int(dead.sum()) > 1000
+    assert bool(torch.signbit(forms[:, dead]).any())
+    assert not bool(torch.signbit(forms[:, dead]).all())
+
+
+def test_record_kernel_only_where_autograd_records_nothing(card, full_mesh):
+    """pack_render_records launches the kernel on the card under no_grad
+    and never where its inputs require grad: there it is the eager pack,
+    the same record bit for bit, and its gradient reaches the vertices
+    and the radiance; a train step launches no record kernel."""
+    cfg, bfm, c, _ = _geo_inputs(full_mesh, 224, 2)
+    with torch.no_grad():
+        geom = coeffs_to_geometry(c, bfm, cfg)
+    rows, pad = bfm.raster_rows, R.padded_rows(bfm.raster_rows.shape[0])
+    want = _hold_records(geom.verts_ndc, geom.radiance, rows, 224)
+    vndc = geom.verts_ndc.clone().requires_grad_(True)
+    rad = geom.radiance.clone().requires_grad_(True)
+    before = dict(_build.LAUNCHES)
+    rec = pack_render_records(vndc, rad, rows, 224, 224, pad)
+    gv, gr = torch.autograd.grad(rec[:, :17].sum(), (vndc, rad))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == before
+    assert torch.equal(rec.detach().view(torch.int32), want.view(torch.int32))
+    assert bool(gv.ne(0).any()) and bool(gr.ne(0).any())
+
+
+@pytest.mark.parametrize("case", ["cpu", "verts_f64", "attr_strided",
+                                  "rows_i32", "rows_cpu", "tail_8", "tail_f",
+                                  "pad_short"])
+def test_record_wrapper_rejects_what_the_kernel_does_not_take(card, case):
+    """pack_records on the card raises, launching nothing, on a wrong
+    dtype or device, a non-contiguous input, a tail of more than 7 rows
+    or of another width than F', or fewer padded rows than F'."""
+    from facerecon_tpu_torch.ops.render import pack_records
+    vndc = torch.rand((2, 4, 3), device=card)
+    attr = torch.rand((2, 4, 3), device=card)
+    rows = torch.tensor([[0, 1, 2], [0, 2, 3]], device=card)
+    tail, pad = None, 128
+    if case == "cpu":
+        vndc, attr, rows = vndc.cpu(), attr.cpu(), rows.cpu()
+    elif case == "verts_f64":
+        vndc = vndc.double()
+    elif case == "attr_strided":
+        attr = torch.rand((2, 4, 6), device=card)[..., ::2]
+    elif case == "rows_i32":
+        rows = rows.int()
+    elif case == "rows_cpu":
+        rows = rows.cpu()
+    elif case == "tail_8":
+        tail = torch.zeros((8, 2), device=card)
+    elif case == "tail_f":
+        tail = torch.zeros((6, 3), device=card)
+    else:
+        pad = 1
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError):
+        pack_records(vndc, attr, rows, 64, 64, pad, tail)
     assert dict(_build.LAUNCHES) == before
 
 

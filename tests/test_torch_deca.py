@@ -13,10 +13,13 @@ cell's configuration file against the stand-ins it states, and a
 pipeline refusing the other face model's assets.
 
 The tests marked `cuda` hold the textured kernel (csrc/raster_texture.cu)
-against its plain version at the published sizes, the render's CUDA
-graphs against the eager functions, the graphs' lifetime (one a name,
-freed with the asset pack), and run Pipeline.reconstruct at batch 8 on
-the card against the reference; they skip without a card.
+against its plain version at the published sizes, and the record kernel
+(csrc/records.cu) with the UV rows as its tail against its plain version
+bit for bit at the cell's microbatch, the render's CUDA graph and record
+kernel against the eager functions, the graph's lifetime (one a name,
+freed with the asset pack), run Pipeline.reconstruct at batch 8 on the
+card against the reference, and run the cell at batch 8 on the card;
+they skip without a card.
 The file imports nothing of JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_deca.py
@@ -357,10 +360,11 @@ def test_texture_kernel_equals_its_plain_version(card, full_arrays, tile_h,
 
 @pytest.mark.cuda
 def test_graphed_render_equals_the_eager_one(card, full_arrays):
-    """render_coeffs on the card replays FLAME's geometry and the records
-    from CUDA graphs: two calls with other codes give what the eager
-    functions give, bit for bit, and the first call's geometry survives
-    the second's replay."""
+    """render_coeffs on the card replays FLAME's geometry from a CUDA
+    graph and packs the records with the record kernel: two calls with
+    other codes give what the eager functions (the records' plain
+    version among them) give, bit for bit, and the first call's geometry
+    survives the second's replay."""
     cfg = deca_config()
     dfl = FL.device_flame(flame_assets(full_arrays), card)
     outs, codes = [], []
@@ -371,12 +375,12 @@ def test_graphed_render_equals_the_eager_one(card, full_arrays):
         with torch.no_grad():
             outs.append(render_coeffs(split_coeff(c, cfg), dfl, cfg,
                                       inference=True))
-    from facerecon_tpu_torch.ops.render import pack_texture_records
+    from facerecon_tpu_torch.ops.render import pack_texture_records_reference
     for c, out in zip(codes, outs):
         cc = split_coeff(c, cfg)
         with torch.no_grad():
             geo = FL.flame_geometry(cc, dfl, cfg)
-            rec = pack_texture_records(
+            rec = pack_texture_records_reference(
                 geo.verts_ndc, geo.normals, dfl, 224, 224,
                 R.padded_rows(dfl.raster_rows.shape[0]))
             tri, color, _ = R.rasterize_textured(
@@ -389,6 +393,54 @@ def test_graphed_render_equals_the_eager_one(card, full_arrays):
             assert torch.equal(a, b)
         assert torch.equal(out.tri_id, tri)
         assert torch.equal(out.image, color * (tri >= 0)[..., None])
+
+
+@pytest.mark.cuda
+def test_record_kernel_equals_its_plain_version_at_the_cell(card,
+                                                            full_arrays):
+    """The record kernel at the cell's microbatch (256 code sets, 224 px,
+    FLAME's 9,976 faces in 19,456 padded rows) with the UV rows as its
+    tail: one launch, and bit for bit the plain version run on the card
+    (int32 bits over all 24 fields and every padded row); fields 17..22
+    are the UV rows, 23 and the rows past F' zero."""
+    from facerecon_tpu_torch.ops.render import (
+        pack_texture_records, pack_texture_records_reference)
+    cfg = deca_config()
+    dfl = FL.device_flame(flame_assets(full_arrays), card)
+    codes = torch.from_numpy(FR.sample_codes(
+        np.random.default_rng(9), TINY_SIZES, 256)).to(card)
+    with torch.no_grad():
+        geo = FL.flame_geometry(split_coeff(codes, cfg), dfl, cfg)
+    pad = R.padded_rows(dfl.raster_rows.shape[0])
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        got = pack_texture_records(geo.verts_ndc, geo.normals, dfl, 224,
+                                   224, pad)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: int(k == "records") for k in _build.KERNELS}
+    want = pack_texture_records_reference(geo.verts_ndc, geo.normals, dfl,
+                                          224, 224, pad)
+    assert got.shape == want.shape == (256, 24, pad)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    f = dfl.raster_rows.shape[0]
+    assert torch.equal(got[:, 17:23, :f],
+                       dfl.raster_uv.expand(256, 6, f))
+    assert not bool(got[:, 23].view(torch.int32).any())
+    assert not bool(got[:, :, f:].view(torch.int32).any())
+
+
+@pytest.mark.cuda
+def test_cell_at_batch_8_through_the_record_kernel_is_correct(card):
+    """A short run of deca-render224.b512 on the card with its traffic's
+    batch and microbatch cut to 8, through the record kernel: correct
+    against the plain reference under the cell's own limits."""
+    cell = copy.deepcopy(spec.cell("deca-render224.b512"))
+    cell["traffic"].update(batch=8, microbatch=8)
+    before = _build.LAUNCHES["records"]
+    r = run.run_cell(cell, 2 ** 31 + 89, 0.5, False, card)
+    assert r["correct"], r["compared"]
+    assert _build.LAUNCHES["records"] > before
 
 
 def _render_on(dfl, cfg, card, n, seed):
@@ -405,17 +457,17 @@ def _graph_outputs(dfl):
 
 @pytest.mark.cuda
 def test_the_graphs_go_with_their_pack(card, full_arrays):
-    """The pack keeps one graph a name: a call at a second batch size
-    frees the first size's graphs, and dropping the pack frees the
-    rest."""
+    """The pack keeps one graph a name (the geometry's; the records are
+    one kernel launch and take none): a call at a second batch size frees
+    the first size's graph, and dropping the pack frees the rest."""
     cfg = deca_config()
     dfl = FL.device_flame(flame_assets(full_arrays), card)
     _render_on(dfl, cfg, card, 16, 1)
-    assert sorted(dfl.graphs) == ["geometry224", "records224"]
+    assert sorted(dfl.graphs) == ["geometry224"]
     first = _graph_outputs(dfl)
     _render_on(dfl, cfg, card, 8, 2)
     torch.cuda.synchronize()
-    assert sorted(dfl.graphs) == ["geometry224", "records224"]
+    assert sorted(dfl.graphs) == ["geometry224"]
     assert all(key[1][0][0] == 8 for key, *_ in dfl.graphs.values())
     assert first and all(r() is None for r in first)
     second, pack = _graph_outputs(dfl), weakref.ref(dfl)
@@ -428,9 +480,9 @@ def test_the_graphs_go_with_their_pack(card, full_arrays):
 def test_reconstruct_at_batch_8_on_the_card(card, full_arrays):
     """Pipeline.reconstruct on DECA's config (the bf16 fused ResNet-50 and
     its float32 two-layer head) at batch 8, its render judged against
-    the reference at the cell's limits; the textured kernel and each
-    binning kernel launch once a call, and no other kernel of the
-    port."""
+    the reference at the cell's limits; the textured kernel, the record
+    kernel and each binning kernel launch once a call, and no other
+    kernel of the port."""
     cfg = deca_config()
     pipe = _reconstruct_pipe(cfg, flame_assets(full_arrays), True, card,
                              torch.bfloat16, 50)
@@ -441,7 +493,8 @@ def test_reconstruct_at_batch_8_on_the_card(card, full_arrays):
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     assert launched == dict.fromkeys(_build.KERNELS, 0) | {
-        "raster_texture": 1, "bin_setup": 1, "bin_windows": 1}
+        "raster_texture": 1, "records": 1, "bin_setup": 1,
+        "bin_windows": 1}
     prog = {"codes": codes, "verts": out.geometry.verts_world,
             "landmarks": out.geometry.landmarks2d,
             "bins": out.geometry.contour_bin, "image": out.image,
