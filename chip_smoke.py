@@ -37,7 +37,16 @@ Phases (any failed check raises, and the script exits non-zero):
      the inputs of the benchmark cell deca-render224.b512 (its
      configuration's seeded FLAME stand-ins, 256 codes from the cell's
      sampler at seed TEX_SEED, 224 px, tile_h 4 x 7 columns; tri_id
-     exact, colour and barycentrics within 1e-6). Each kernel's ms a
+     exact, colour and barycentrics within 1e-6); DECA's detail kernels
+     on the inputs of the benchmark cell deca-detail224.b512 (its seeded
+     stand-ins and decoder at seed DETAIL_SEED, its microbatch of 256,
+     256^2 maps, 224 px, tile_h 4 x 7 columns): the UV detail kernel
+     (csrc/uv_detail.cu, through ops/detail.uv_detail; the displacement
+     map bit for bit, the texture and the detail normals within 1e-6)
+     and the fetch of the texture it shaded (raster_texfetch_kernel in
+     csrc/raster_texture.cu, through ops/rasterize.texfetch_windows;
+     tri_id exact, colour and barycentrics within 1e-6), each launched
+     alone. Each kernel's ms a
      launch (CUDA events), its plain version's ms and its bound. The ops
      bounds of K1, K2 and K4 count what the inputs need, the same for
      any design (the pixel centers in each triangle's bounding box, 7
@@ -51,7 +60,9 @@ Phases (any failed check raises, and the script exits non-zero):
      written and the two (B, N, 3) planes read; the textured kernel's
      perfbench/work_flame.texture_work (the bytes read and written once,
      the distinct albedo texels the covered pixels' bilinear footprints
-     read, and the tests the inputs need).
+     read, and the tests the inputs need); the UV detail kernel's
+     perfbench/work_detail.uv_detail_bytes and the fetch's
+     work_detail.texfetch_work.
   4. K5 (floor): K1, K2 and K4 alone on inputs precomputed once at
      benchmarks/floor_probe.py's defaults (batch 128, tile_h 2, 4 columns,
      frontal coefficients), each real-mask call held against its plain
@@ -130,6 +141,9 @@ BIN_RUNS = (("headline", 224, 4, 7, MICRO),
 TEX_CELL = "deca-render224.b512"   # DECA's textured kernel: the cell,
 TEX_BATCH = 256          # its microbatch,
 TEX_SEED = 22            # and the seed of the codes
+DETAIL_CELL = "deca-detail224.b512"   # DECA's detail kernels: the cell,
+DETAIL_SEED = 26         # the seed of its codes and decoder, and its
+                         # microbatch is TEX_BATCH
 GEO_RUNS = (("headline", 224, MICRO), ("render512", 512, 32))
 GEO_ATOL = 1e-6          # geometry kernel vs its plain version on the card
 # the record kernel's BFM shapes: (where, px, batch); DECA's is TEX_CELL's
@@ -973,6 +987,157 @@ def check_texture():
                 bound_by=bound_by, max_abs_err=err)
 
 
+def _detail_inputs():
+    """DETAIL_CELL's kind set up at DETAIL_SEED (the configuration's
+    FLAME and detail stand-ins, the decoder's seeded, calibrated weights,
+    the cell's codes), and the first TEX_BATCH codes through the path's
+    own functions up to the UV detail pass: (kind, codes, the pass's
+    arguments)."""
+    from facerecon_tpu_torch.models.deca_detail import decoder_input
+    from facerecon_tpu_torch.ops import flame as FL
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    from perfbench import spec
+    from perfbench.kinds import flame_detail as FD
+    kind = FD.Kind(spec.cell(DETAIL_CELL), DETAIL_SEED,
+                   torch.device(DEVICE))
+    kind.setup()
+    pack, s = kind.flame, kind.uv_size
+    codes = kind.codes[:TEX_BATCH]
+    c = split_coeff(codes, kind.cfg)
+    with torch.no_grad():
+        geo = FL.flame_geometry(c, pack, kind.cfg, image_size=kind.size)
+        uv_z = pack.detail.decoder(decoder_input(c)).view(-1, s, s)
+        args = (geo.verts_world, geo.normals, uv_z, pack.detail,
+                FL.decode_albedo(c.tex, pack),
+                c.light.reshape(-1, 9, 3).contiguous(), pack.sh_factor)
+    return kind, codes, geo, args
+
+
+def _launched_alone(name):
+    """Fails unless the launch counters, zeroed just before the call,
+    read one launch of `name` and none of any other port kernel."""
+    from facerecon_tpu_torch.ops import _build
+    want = {k: int(k == name) for k in _build.KERNELS}
+    if _build.LAUNCHES != want:
+        raise AssertionError(f"{name}: launches {dict(_build.LAUNCHES)}")
+
+
+def _plain_ms(fn):
+    """(fn(), its ms by CUDA events): one call of a plain version."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_uv_detail(kind, args):
+    """The UV detail kernel (csrc/uv_detail.cu, through
+    ops/detail.uv_detail) on DETAIL_CELL's inputs at its microbatch
+    (5,023 vertices, 256^2 maps): one launch, held against
+    uv_detail_reference (the displacement map bit for bit, the texture
+    and the detail normals within 1e-6), then timed beside the plain
+    version's one call, and bounded by perfbench/work_detail
+    .uv_detail_bytes. Returns (the kernels line's numbers, uv_texture)."""
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import detail as DT
+    from perfbench import work_detail
+    _build.reset_launches()
+    got = DT.uv_detail(*args)
+    torch.cuda.synchronize()
+    _launched_alone("uv_detail")
+    ref, plain_ms = _plain_ms(lambda: DT.uv_detail_reference(*args))
+    if not torch.equal(got[2], ref[2]):
+        bad = int((got[2] != ref[2]).sum())
+        raise AssertionError(f"uv_detail displacement map differs from the "
+                             f"plain version at {bad} texels")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+    if not err <= 1e-6:
+        raise AssertionError(f"uv_detail texture/normals differ from the "
+                             f"plain version by {err}")
+    del ref
+    ms = _time_ms(lambda: DT.uv_detail(*args), reps=20)
+    bsz, n = args[0].shape[:2]
+    bound_ms, bound_by = _bound(work_detail.uv_detail_bytes(
+        bsz, n, kind.uv_size), 0, "uv_detail")
+    print(f"uv_detail[{DETAIL_CELL}] batch={bsz} {n} vertices "
+          f"{kind.uv_size}^2 maps kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
+          f"bound={bound_ms:.4f} ms ({bound_by}) max|err|={err:.3g} "
+          f"(displacement exact) on {_card_line()}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err), got[0]
+
+
+def check_texfetch(kind, codes, geo, texture):
+    """The detailed image's fetch (raster_texfetch_kernel in
+    csrc/raster_texture.cu, through ops/rasterize.texfetch_windows) on
+    DETAIL_CELL's inputs at its microbatch (224 px, tile_h 4 x 7
+    columns, FLAME's 9,976 faces, the UV detail kernel's 256^2
+    uv_texture): one launch, held against texfetch_windows_reference
+    (tri_id exact, colour and barycentrics within 1e-6, coverage above
+    0.3), then timed beside the plain version's one call, and bounded by
+    perfbench/work_detail.texfetch_work on the same codes. Returns the
+    kernels line's numbers."""
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import rasterize as R
+    from facerecon_tpu_torch.ops.render import pack_texture_records
+    from perfbench import work_detail
+    pack, cfg, s = kind.flame, kind.cfg, kind.size
+    with torch.no_grad():
+        rec = pack_texture_records(geo.verts_ndc, geo.normals, pack, s, s,
+                                   R.padded_rows(pack.raster_rows.shape[0]))
+        win = R.band_windows(geo.verts_ndc, pack.raster_rows,
+                             pack.raster_row_id, s, s, cfg.tile_h,
+                             cfg.raster_cols)
+    kw = dict(height=s, width=s, tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
+              n_faces=pack.faces.shape[0])
+    _build.reset_launches()
+    got = R.texfetch_windows(win, rec, texture, **kw)
+    torch.cuda.synchronize()
+    _launched_alone("raster_texfetch")
+    ref, plain_ms = _plain_ms(lambda: R.texfetch_windows_reference(
+        win, rec, texture, **kw))
+    if not torch.equal(got[0], ref[0]):
+        bad = int((got[0] != ref[0]).sum())
+        raise AssertionError(f"raster_texfetch tri_id differs from the "
+                             f"plain version at {bad} pixels")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:]))
+    if not err <= 1e-6:
+        raise AssertionError(f"raster_texfetch colour/bary differ from the "
+                             f"plain version by {err}")
+    cover = float((got[0] >= 0).float().mean())
+    if not cover > 0.3:
+        raise AssertionError(f"raster_texfetch covers {cover} of the pixels")
+    del got, ref
+    ms = _time_ms(lambda: R.texfetch_windows(win, rec, texture, **kw),
+                  reps=20)
+    with torch.no_grad():
+        n_bytes, n_ops = work_detail.texfetch_work(codes, kind.fl, s,
+                                                   kind.uv_size)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, "raster_texfetch")
+    print(f"raster_texfetch[{DETAIL_CELL}] batch={codes.shape[0]} {s} px "
+          f"tile_h {cfg.tile_h} x {cfg.raster_cols} columns "
+          f"coverage={cover:.4f} kernel={ms:.4f} ms plain={plain_ms:.2f} ms "
+          f"bound={bound_ms:.4f} ms ({bound_by}) max|err|={err:.3g} "
+          f"(tri_id exact) on {_card_line()}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def check_detail():
+    """The detail cell's two kernels on one set of its inputs: the UV
+    detail kernel, then the fetch of the texture it shaded."""
+    kind, codes, geo, args = _detail_inputs()
+    uv, texture = check_uv_detail(kind, args)
+    fetch = check_texfetch(kind, codes, geo, texture)
+    kind.free()
+    del kind, codes, geo, args, texture
+    torch.cuda.empty_cache()
+    return uv, fetch
+
+
 def _probe_cases(name, cases, inner, reps, t0, card):
     """Fails on a non-finite or non-positive time or a non-finite sum;
     prints the twin's summary line."""
@@ -1105,6 +1270,8 @@ def main() -> int:
     measured["geometry"] = _timed("geometry", check_geometry, cfg, assets)
     measured["records"] = _timed("records", check_records, cfg, assets)
     measured["raster_texture"] = _timed("texture", check_texture)
+    measured["uv_detail"], measured["raster_texfetch"] = _timed(
+        "detail", check_detail)
     _timed("floor", check_floor, cfg, assets)
     measured["ctz_walk"] = _timed("ctz_walk", check_ctz_walk)
     _timed("probes", check_bench_probes)
@@ -1121,10 +1288,14 @@ def main() -> int:
         "geometry": "none (XLA-fused jnp: facerecon_tpu/ops/geometry.py "
                     "coeffs_to_geometry, facerecon_tpu/ops/sh.py illuminate)",
         "records": "none (XLA-fused jnp: facerecon_tpu/ops/render.py "
-                   "_render_fields, _stack24)"}
+                   "_render_fields, _stack24)",
+        "uv_detail": "none (the JAX package has no DECA detail path)",
+        "raster_texfetch": "none (the JAX package has no DECA detail "
+                           "path)"}
     kernels = [dict(
         name=name, route="cuda",
-        source=f"facerecon_tpu_torch/csrc/{name}.cu",
+        source="facerecon_tpu_torch/csrc/"
+               f"{_build.SOURCES.get(name, name)}.cu",
         replaces=replaces[name],
         max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
         bound_ms=m["bound_ms"], bound_by=m["bound_by"],

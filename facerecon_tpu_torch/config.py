@@ -12,7 +12,11 @@ arXiv:2012.04012: codes [shape 100 | tex 50 | exp 50 | pose 6 | cam 3 |
 light 27] = 236, a 256^2 UV albedo, an orthographic camera, and a
 two-layer regressor head of `head_hidden` units). `deca_config` gives
 DECA's published sizes; the FLAME-only fields are read only when
-model == "flame", so every BFM default is unchanged. DECA's pose, camera
+model == "flame", so every BFM default is unchanged. `n_detail` > 0 adds
+DECA's detail model (`deca_config(n_detail=128)`): a detail code of
+n_detail values after the coarse 236 (regressed by a second encoder),
+decoded to a displacement map of uv_size^2 texels (models/deca_detail.py,
+ops/detail.py); 0, the default, is the coarse model. DECA's pose, camera
 and light groups have one layout only (DECA_FIXED), so they are no
 fields. `is_flame` reads the model of any config, the JAX package's
 included (which has no `model` and is a BFM config).
@@ -54,6 +58,7 @@ class FaceReconConfig:
     n_shape: int = 100
     uv_size: int = 256     # albedo texels a side after the downsample
     head_hidden: int = 1024  # the regressor head's hidden layer
+    n_detail: int = 0      # DECA's detail code (128); 0 = coarse only
 
     # --- mesh dims (configurable; full BFM09: 53490, cropped: 35709) ---
     n_vertices: int = 35709
@@ -110,19 +115,29 @@ class FaceReconConfig:
         if self.model not in ("bfm", "flame"):
             raise ValueError(f"unknown face model {self.model!r}: "
                              "expected 'bfm' or 'flame'")
+        if self.n_detail and self.model != "flame":
+            raise ValueError("n_detail > 0 needs model='flame' (DECA)")
 
     @property
     def coeff_sizes(self) -> Tuple[int, ...]:
         """The code's groups in order: [id | exp | tex | angles | gamma |
         t] for BFM, [shape | tex | exp | pose | cam | light] for FLAME."""
         if is_flame(self):
-            return (self.n_shape, self.n_tex, self.n_exp, *DECA_FIXED)
+            detail = (self.n_detail,) if self.n_detail else ()
+            return (self.n_shape, self.n_tex, self.n_exp, *DECA_FIXED,
+                    *detail)
         return (self.n_id, self.n_exp, self.n_tex, self.n_angles,
                 self.n_gamma, self.n_trans)
 
     @property
     def n_coeff(self) -> int:
         return sum(self.coeff_sizes)
+
+    @property
+    def n_coarse(self) -> int:
+        """The codes the coarse encoder regresses (all but the detail
+        code)."""
+        return self.n_coeff - (self.n_detail if is_flame(self) else 0)
 
     @property
     def coeff_split(self) -> Tuple[int, ...]:
@@ -152,7 +167,8 @@ def default_config(**overrides) -> FaceReconConfig:
 def deca_config(**overrides) -> FaceReconConfig:
     """DECA's coarse model on FLAME at its published sizes (5,023
     vertices, 9,976 faces, 68 landmarks, 236 codes, a 256^2 albedo, 224
-    px), with the BFM render's 4-row bands x 7 column tiles."""
+    px), with the BFM render's 4-row bands x 7 column tiles; n_detail=128
+    adds the detail model."""
     base = dict(model="flame", n_tex=50, n_exp=50, n_vertices=5023,
                 n_faces=9976, image_size=224, tile_h=4, raster_cols=7)
     base.update(overrides)

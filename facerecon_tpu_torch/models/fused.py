@@ -130,9 +130,12 @@ class FusedResNetRegressor(nn.Module):
 
 
 def build_fused_model(cfg: FaceReconConfig, depth: int = 50,
-                      dtype=torch.bfloat16) -> FusedResNetRegressor:
-    return FusedResNetRegressor(n_coeff=cfg.n_coeff,
-                                stage_sizes=STAGES[depth], dtype=dtype,
+                      dtype=torch.bfloat16,
+                      n_out: int = 0) -> FusedResNetRegressor:
+    """As models/resnet.build_model, fused."""
+    n = n_out or (cfg.n_coarse if is_flame(cfg) else cfg.n_coeff)
+    return FusedResNetRegressor(n_coeff=n, stage_sizes=STAGES[depth],
+                                dtype=dtype,
                                 hidden=cfg.head_hidden if is_flame(cfg) else 0)
 
 

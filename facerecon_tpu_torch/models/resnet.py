@@ -202,7 +202,9 @@ class ResNetRegressor(nn.Module):
 
 
 def build_model(cfg: FaceReconConfig, depth: int = 50,
-                dtype=torch.bfloat16) -> ResNetRegressor:
-    return ResNetRegressor(n_coeff=cfg.n_coeff, stage_sizes=STAGES[depth],
-                           dtype=dtype,
+                dtype=torch.bfloat16, n_out: int = 0) -> ResNetRegressor:
+    """The regressor of cfg's codes, or of n_out values (DECA's detail
+    encoder: n_out = cfg.n_detail) where n_out > 0."""
+    n = n_out or (cfg.n_coarse if is_flame(cfg) else cfg.n_coeff)
+    return ResNetRegressor(n_coeff=n, stage_sizes=STAGES[depth], dtype=dtype,
                            hidden=cfg.head_hidden if is_flame(cfg) else 0)

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 from facerecon_tpu_torch import resolve_device
 from facerecon_tpu_torch.config import FaceReconConfig
 from facerecon_tpu_torch.ops.binning import ndc_to_screen
+from facerecon_tpu_torch.ops.detail import device_detail
 from facerecon_tpu_torch.utils.coeffs import DECACodes
 
 # DECA's SH constant_factor (utils/renderer.py), float64 cast to float32
@@ -107,6 +108,8 @@ class DeviceFLAME:
     sh_factor: torch.Tensor       # (9,) SH_FACTOR
     parents: tuple                # (5,) python ints
     uv_size: int                  # S
+    detail: object = None         # ops/detail.DeviceDetail: DECA's detail
+                                  # model, where the pack has one
     graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False)
 
@@ -121,10 +124,22 @@ def kept_texels(albedo_size: int, uv_size: int) -> np.ndarray:
 
 
 def device_flame(assets, device="cuda", n_tex: int = 50,
-                 uv_size: int = 256) -> DeviceFLAME:
+                 uv_size: int = 256, decoder=None) -> DeviceFLAME:
     """Upload a FLAMEAssets pack once, keeping the albedo's first n_tex
-    components at the texels of the uv_size downsample."""
+    components at the texels of the uv_size downsample. A pack with
+    detail assets and a `decoder` (a models/deca_detail.DetailGenerator,
+    folded here) also carries DECA's detail model
+    (ops/detail.DeviceDetail)."""
     dev = resolve_device(device)
+    detail = None
+    if decoder is not None:
+        if assets.detail is None:
+            raise ValueError("a decoder was given for a pack without "
+                             "detail assets")
+        if assets.detail.uv_size != uv_size:
+            raise ValueError(f"detail maps of {assets.detail.uv_size}^2 "
+                             f"for a {uv_size}^2 albedo")
+        detail = device_detail(assets.detail, assets.faces, decoder, dev)
     n = assets.n_vertices
     src = kept_texels(assets.albedo_size, uv_size).reshape(-1)
     # texel (y, x) channel c (RGB) reads the source row of channel 2 - c
@@ -160,7 +175,7 @@ def device_flame(assets, device="cuda", n_tex: int = 50,
         raster_uv=raster_uv.contiguous(),
         sh_factor=up(SH_FACTOR),
         parents=tuple(int(p) for p in assets.parents),
-        uv_size=uv_size)
+        uv_size=uv_size, detail=detail)
 
 
 # --- the model ---

@@ -26,8 +26,12 @@ tensors, and counts launches in `_build.LAUNCHES`:
   - `texture_windows` -> `csrc/raster_texture.cu` (DECA's textured
     shade: K1's z-test, then SH-9 of the winner's interpolated world
     normal times a bilinear fetch of the image's UV albedo);
-    `rasterize_textured` chains binning and it.
-K1, K2, K4 and the textured shade share one micro-tiled z-test and block
+    `rasterize_textured` chains binning and it;
+  - `texfetch_windows` -> `raster_texfetch_kernel`, the second kernel of
+    `csrc/raster_texture.cu` (DECA's detailed image: K1's z-test, then a
+    bilinear fetch of an already shaded UV texture at the winner's
+    interpolated UV); `rasterize_texfetch` chains binning and it.
+K1, K2, K4 and the two textured kernels share one micro-tiled z-test and block
 skeleton (`csrc/raster_common.cuh`) and take one launch shape
 (`_raster_ints`):
 a block of 128 threads for each (column tile, band, image), for a band
@@ -314,6 +318,39 @@ def texture_windows(win: Windows, records, albedo, light, sh_factor, *,
                        albedo, light, sh_factor, tri_id, color, bary),
                       (*_raster_ints(win, height, width, tile_h, n_cols,
                                      n_faces), albedo.shape[1]))
+    return tri_id, color, bary
+
+
+def texfetch_windows(win: Windows, records, texture, *, height: int,
+                     width: int, tile_h: int, n_cols: int, n_faces: int):
+    """Rasterize + the bilinear fetch of a shaded texture from prepared
+    windows: the detailed image's kernel's wrapper. records as
+    texture_windows takes them (only the affine forms, the anchor and the
+    UV corners are read); texture (B, S, S, 3) f32 RGB, already shaded
+    (ops/detail.uv_detail's uv_texture). Returns (tri_id (B,H,W) int32,
+    color (B,H,W,3) f32 = grid_sample of the texture at the pixel's UV,
+    zero on background, bary (B,H,W,3) f32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    _check_inputs(win, records, height, width, tile_h, n_cols)
+    size = texture.shape[1]
+    _build.check_tensors(win.setup.device, {
+        "texture": (texture, torch.float32,
+                    (win.setup.shape[0], size, size, 3))})
+    if not _build.on_card(records.device):
+        return texfetch_windows_reference(
+            win, records, texture, height=height, width=width,
+            tile_h=tile_h, n_cols=n_cols, n_faces=n_faces)
+    bsz, dev = records.shape[0], records.device
+    tri_id = torch.empty((bsz, height, width), dtype=torch.int32, device=dev)
+    color = torch.empty((bsz, height, width, 3), dtype=torch.float32,
+                        device=dev)
+    bary = torch.empty_like(color)
+    if bsz:
+        _build.launch("raster_texfetch", dev,
+                      (win.setup, records, win.blo, win.bn, win.cmask,
+                       texture, tri_id, color, bary),
+                      (*_raster_ints(win, height, width, tile_h, n_cols,
+                                     n_faces), size))
     return tri_id, color, bary
 
 
@@ -712,6 +749,41 @@ def texture_windows_reference(win: Windows, records, albedo, light,
                  for a in (tri, color, bary))
 
 
+def texfetch_windows_reference(win: Windows, records, texture, *,
+                               height: int, width: int, tile_h: int,
+                               n_cols: int, n_faces: int):
+    """Plain PyTorch version of the detailed image's fetch kernel, on the
+    same inputs: the plain z-test (_band_winners), the winner's
+    barycentrics and UV, and the bilinear fetch of the shaded texture
+    (bilinear_zeros), with the kernel's float ops in its order."""
+    bsz = win.setup.shape[0]
+    dev = win.setup.device
+    n_bands = (height + tile_h - 1) // tile_h
+    band_px = tile_h * col_width(width, n_cols) * n_cols
+    tri = torch.full((bsz, n_bands, band_px), -1, dtype=torch.int32,
+                     device=dev)
+    color = torch.zeros((bsz, n_bands, band_px, 3), device=dev)
+    bary = torch.zeros_like(color)
+    for b, t, hit, ids, best_row, _, px, py in _band_winners(
+            win, height, width, tile_h, n_cols, n_faces):
+        rec = records[b, :23, best_row]                # (23, band_px)
+        qx = px - rec[15]
+        qy = py - rec[16]
+        w0 = rec[9] * qx + rec[10] * qy + rec[11]
+        w1 = rec[12] * qx + rec[13] * qy + rec[14]
+        w2 = 1.0 - w0 - w1
+
+        def lerp(f):
+            return w0 * rec[f] + w1 * rec[f + 2] + w2 * rec[f + 4]
+        rgb = bilinear_zeros(texture[b], lerp(17), lerp(18))
+        hit3 = hit[:, None]
+        tri[b, t] = torch.where(hit, ids, -1).to(torch.int32)
+        color[b, t] = torch.where(hit3, rgb, 0.0)
+        bary[b, t] = torch.where(hit3, torch.stack([w0, w1, w2], -1), 0.0)
+    return tuple(_unband(a, height, width, tile_h)
+                 for a in (tri, color, bary))
+
+
 def _check_grad_inputs(row, g, blo, bn, rows: int, tile_h: int):
     bsz, height, width = row.shape
     n_bands = (height + tile_h - 1) // tile_h
@@ -852,6 +924,20 @@ def rasterize_textured(records, albedo, light, sh_factor, verts_ndc, faces,
     bary) as rasterize_shaded."""
     def core(win, rec, **kw):
         return texture_windows(win, rec, albedo, light, sh_factor, **kw)
+    return _rasterize(core, records, verts_ndc, faces, height, width,
+                      tile_h, n_cols, cull_backfaces, row_faces, row_id)
+
+
+def rasterize_texfetch(records, texture, verts_ndc, faces, *, height: int,
+                       width: int, tile_h: int, n_cols: int = 1,
+                       cull_backfaces: bool = False, row_faces=None,
+                       row_id=None):
+    """Fused raster + the bilinear fetch of a shaded UV texture (DECA's
+    detailed image): binning, then texfetch_windows. records as
+    rasterize_textured; texture (B, S, S, 3). Returns (tri_id, color,
+    bary) as rasterize_shaded."""
+    def core(win, rec, **kw):
+        return texfetch_windows(win, rec, texture, **kw)
     return _rasterize(core, records, verts_ndc, faces, height, width,
                       tile_h, n_cols, cull_backfaces, row_faces, row_id)
 

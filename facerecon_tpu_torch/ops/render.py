@@ -27,6 +27,11 @@ instead (`render_flame`, inference only): FLAME's geometry, the UV
 albedo decode, and the textured raster (`rasterize.rasterize_textured`),
 whose kernel shades each pixel from its winner's world normals and UVs
 with SH-9 and a bilinear fetch of the albedo (`pack_texture_records`).
+A detail config (cfg.n_detail > 0, DECA's detail model; the pack holds
+its tables and decoder, ops/detail.DeviceDetail) decodes the
+displacement map (models/deca_detail, span fr.decoder), shades the UV
+texture from the detail normals (ops/detail.uv_detail, fr.uv_detail),
+and fetches the detailed image from it (`rasterize.rasterize_texfetch`).
 """
 
 from __future__ import annotations
@@ -36,11 +41,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from facerecon_tpu_torch.config import FaceReconConfig, is_flame
+from facerecon_tpu_torch.models.deca_detail import decoder_input
 from facerecon_tpu_torch.ops import _build
 from facerecon_tpu_torch.ops import flame as flame_ops
 from facerecon_tpu_torch.ops import rasterize
 from facerecon_tpu_torch.ops import sh as sh_ops
 from facerecon_tpu_torch.ops.binning import affine_forms, ndc_to_screen
+from facerecon_tpu_torch.ops.detail import uv_detail
 from facerecon_tpu_torch.ops.geometry import (DeviceBFM, Geometry,
                                               autograd_records,
                                               coeffs_to_geometry,
@@ -246,6 +253,9 @@ class RenderOut(NamedTuple):
     geometry: Geometry        # ops/flame.FLAMEGeometry on the FLAME path
     skin: Optional[torch.Tensor] = None  # (B,H,W) interpolated skin mask
                                          # (training path only)
+    uv_detail_normals: Optional[torch.Tensor] = None  # (B,S,S,3) and
+    displacement_map: Optional[torch.Tensor] = None   # (B,S,S): DECA's
+                                         # detail model only
 
 
 def render_geometry(geom: Geometry, gamma, bfm: DeviceBFM,
@@ -300,9 +310,23 @@ def render_flame(codes, flame, cfg: FaceReconConfig,
     composited over `background` (zeros by default, as DECA's). On the
     card the geometry replays a CUDA graph (ops/flame.graphed; the
     geometry returned is copied out of it), and the records are one
-    launch of the record kernel."""
+    launch of the record kernel.
+
+    A detail config renders DECA's detailed image instead: after the
+    albedo, the decoder's displacement map (fr.decoder) and the UV
+    detail pass (fr.uv_detail: the shaded uv_texture, the detail normals
+    and the displacement map), then the records, the binning and the
+    fetch of uv_texture at each pixel's UV; the RenderOut also holds
+    uv_detail_normals and displacement_map."""
     h = w = image_size or cfg.image_size
     pad_rows = rasterize.padded_rows(flame.raster_rows.shape[0])
+    detail = cfg.n_detail > 0
+    if detail and (flame.detail is None or codes.detail is None):
+        raise ValueError("a detail config needs detail codes and a pack "
+                         "with the detail model (device_flame(..., "
+                         "decoder=...))")
+    light = codes.light.reshape(-1, 9, 3).contiguous()
+    normals_uv = disp = None
 
     def geometry_fn(shape, exp, pose, cam):
         return flame_ops.flame_geometry(
@@ -318,20 +342,35 @@ def render_flame(codes, flame, cfg: FaceReconConfig,
                 geom = geom._make(t.clone() for t in geom)
         with span("fr.albedo"):
             albedo = flame_ops.decode_albedo(codes.tex, flame)
+        if detail:
+            s = flame.detail.uv_size
+            with span("fr.decoder"):
+                uv_z = flame.detail.decoder(decoder_input(codes)).view(
+                    -1, s, s)
+            with span("fr.uv_detail"):
+                texture, normals_uv, disp = uv_detail(
+                    geom.verts_world, geom.normals, uv_z, flame.detail,
+                    albedo, light, flame.sh_factor)
         with span("fr.records"):
             records = pack_texture_records(geom.verts_ndc, geom.normals,
                                            flame, h, w, pad_rows)
-        tri_id, color, bary = rasterize.rasterize_textured(
-            records, albedo, codes.light.reshape(-1, 9, 3).contiguous(),
-            flame.sh_factor, geom.verts_ndc, flame.faces, height=h, width=w,
-            tile_h=cfg.tile_h, n_cols=cfg.raster_cols,
-            row_faces=flame.raster_rows, row_id=flame.raster_row_id)
+        kw = dict(height=h, width=w, tile_h=cfg.tile_h,
+                  n_cols=cfg.raster_cols, row_faces=flame.raster_rows,
+                  row_id=flame.raster_row_id)
+        if detail:
+            tri_id, color, bary = rasterize.rasterize_texfetch(
+                records, texture, geom.verts_ndc, flame.faces, **kw)
+        else:
+            tri_id, color, bary = rasterize.rasterize_textured(
+                records, albedo, light, flame.sh_factor, geom.verts_ndc,
+                flame.faces, **kw)
     mask = (tri_id >= 0).to(torch.float32)
     image = color * mask[..., None]
     if background is not None:
         image = image + background * (1.0 - mask[..., None])
     return RenderOut(image=image, mask=mask, tri_id=tri_id, bary=bary,
-                     radiance=None, geometry=geom)
+                     radiance=None, geometry=geom,
+                     uv_detail_normals=normals_uv, displacement_map=disp)
 
 
 def render_coeffs(coeffs: Coeffs, assets: DeviceBFM, cfg: FaceReconConfig,

@@ -16,7 +16,12 @@ runs DECA's coarse model on the same entry points: the ResNet with
 DECA's two-layer float32 head regresses 236 codes, which are split
 (utils/coeffs.DECACodes) and rendered through FLAME, the UV albedo and
 the textured raster (ops/render.render_flame), composited over zeros as
-DECA's renderer does.
+DECA's renderer does. A detail config (cfg.n_detail > 0) adds DECA's
+detail encoder E_d (`detail_model`: the same backbone, a two-layer head
+of n_detail outputs), whose code follows the coarse ones, and renders the
+detailed image through the pack's decoder (`decoder` of the
+constructors, a models/deca_detail.DetailGenerator, which a detail
+config requires).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ class Pipeline:
     bfm: DeviceBFM     # or DeviceFLAME for a FLAME config
     model: nn.Module   # FusedResNetRegressor, or ResNetRegressor to train
     device: torch.device
+    detail_model: Optional[nn.Module] = None  # DECA's E_d (n_detail > 0)
 
     @torch.no_grad()
     def reconstruct(self, images, background: Optional[torch.Tensor] = None,
@@ -66,16 +72,23 @@ class Pipeline:
 
         A FLAME pipeline returns DECA's codes (B, 236), DECACodes and the
         textured render, composited over `background` or, by default,
-        over zeros (DECA's); it renders for inference only."""
+        over zeros (DECA's); it renders for inference only. With the
+        detail encoder the codes are (B, 236 + n_detail), E_c's then
+        E_d's, and the render is the detailed image."""
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
-        was = self.model.training
-        self.model.eval()
+        models = [m for m in (self.model, self.detail_model)
+                  if m is not None]
+        was = [m.training for m in models]
         try:
             with span("fr.cnn"):
-                coeff_vec = self.model(images)
+                coeff_vec = self.model.eval()(images)
+                if self.detail_model is not None:
+                    coeff_vec = torch.cat(
+                        [coeff_vec, self.detail_model.eval()(images)], dim=1)
         finally:
-            self.model.train(was)
+            for m, w in zip(models, was):
+                m.train(w)
         coeffs = split_coeff(coeff_vec, self.cfg)
         if background is None and not is_flame(self.cfg):
             background = images
@@ -84,66 +97,92 @@ class Pipeline:
         return coeff_vec, coeffs, out
 
 
-def _pipeline(cfg, assets, device, model) -> Pipeline:
+def _pipeline(cfg, assets, device, model, detail_model=None,
+              decoder=None) -> Pipeline:
     """Turns TF32 off for the process (geometry must stay true float32,
-    and cuDNN would otherwise run float32 convolutions in TF32), then
-    uploads the assets and the model."""
+    and cuDNN would otherwise run float32 convolutions in TF32; the
+    detail decoder turns it on for its own convolutions), then uploads
+    the assets and the models."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = model.to(dev, memory_format=torch.channels_last)
-    return Pipeline(cfg=cfg, bfm=device_assets(assets, cfg, dev),
-                    model=model, device=dev)
+    models = [m.to(dev, memory_format=torch.channels_last)
+              if m is not None else None for m in (model, detail_model)]
+    return Pipeline(cfg=cfg,
+                    bfm=device_assets(assets, cfg, dev, decoder),
+                    model=models[0], device=dev, detail_model=models[1])
 
 
-def device_assets(assets, cfg: FaceReconConfig, device):
+def device_assets(assets, cfg: FaceReconConfig, device, decoder=None):
     """The assets of cfg's face model on the device: BFMAssets ->
     DeviceBFM, FLAMEAssets -> DeviceFLAME (the albedo's first cfg.n_tex
-    components at cfg.uv_size). Raises when the pack is not of cfg's
-    model."""
+    components at cfg.uv_size; for a detail config with `decoder`, the
+    detail decoder). Raises when the pack is not of cfg's model, or a
+    detail config was given no decoder."""
     flame = is_flame(cfg)
     if flame != isinstance(assets, FLAMEAssets):
         raise ValueError(f"a {'FLAME' if flame else 'BFM'} config was "
                          f"given {type(assets).__name__}")
     if flame:
-        return device_flame(assets, device, cfg.n_tex, cfg.uv_size)
+        if cfg.n_detail and decoder is None:
+            raise ValueError("a detail config needs its decoder "
+                             "(models/deca_detail.DetailGenerator)")
+        return device_flame(assets, device, cfg.n_tex, cfg.uv_size,
+                            decoder if cfg.n_detail else None)
     return device_bfm(assets, device)
 
 
 def make_pipeline(cfg: FaceReconConfig, assets: BFMAssets, device="cuda",
-                  dtype=torch.bfloat16, depth: int = 50,
-                  seed: int = 0) -> Pipeline:
+                  dtype=torch.bfloat16, depth: int = 50, seed: int = 0,
+                  decoder=None) -> Pipeline:
     """The inference pipeline: the fused regressor with random weights
     drawn from `seed` (load trained ones with
-    `pipe.model.load_state_dict(jax_params.fused_state_dict(...))`)."""
-    model = build_fused_model(cfg, depth, dtype).reset_parameters_(
-        torch.Generator().manual_seed(seed))
-    return _pipeline(cfg, assets, device, model.eval())
+    `pipe.model.load_state_dict(jax_params.fused_state_dict(...))`); a
+    detail config adds the fused detail encoder and the decoder."""
+    def fused(n_out=0, k=0):
+        return build_fused_model(cfg, depth, dtype, n_out).reset_parameters_(
+            torch.Generator().manual_seed(seed + k)).eval()
+    detail = fused(cfg.n_detail, 1) if _has_detail(cfg) else None
+    return _pipeline(cfg, assets, device, fused(), detail, decoder)
 
 
 def make_train_pipeline(cfg: FaceReconConfig, assets: BFMAssets,
                         device="cuda", dtype=torch.bfloat16, depth: int = 50,
-                        seed: int = 0) -> Pipeline:
+                        seed: int = 0, decoder=None) -> Pipeline:
     """The training pipeline: the BatchNorm regressor, initialised as the
     reference initialises it from `seed` (carry flax variables over with
-    `pipe.model.load_state_dict(jax_params.train_state_dict(...))`)."""
-    model = build_model(cfg, depth, dtype).reset_parameters_(
-        torch.Generator().manual_seed(seed))
-    return _pipeline(cfg, assets, device, model.train())
+    `pipe.model.load_state_dict(jax_params.train_state_dict(...))`); a
+    detail config adds the BatchNorm detail encoder and the decoder."""
+    def bn(n_out=0, k=0):
+        return build_model(cfg, depth, dtype, n_out).reset_parameters_(
+            torch.Generator().manual_seed(seed + k)).train()
+    detail = bn(cfg.n_detail, 1) if _has_detail(cfg) else None
+    return _pipeline(cfg, assets, device, bn(), detail, decoder)
+
+
+def _has_detail(cfg) -> bool:
+    return is_flame(cfg) and cfg.n_detail > 0
+
+
+def _fused(bn: nn.Module, device) -> FusedResNetRegressor:
+    hidden = bn.head_hidden.out_features if bn.head_hidden is not None else 0
+    fused = FusedResNetRegressor(bn.head.out_features, bn.stage_sizes,
+                                 bn.width, bn.dtype, hidden)
+    fused.load_state_dict(fold_bn_model(bn))
+    return fused.to(device, memory_format=torch.channels_last).eval()
 
 
 def fuse_for_inference(pipe: Pipeline) -> Pipeline:
     """Deploy-time transform of a BatchNorm pipeline: a pipeline on the
     same device and assets holding the fused model (BatchNorm folded
     from the running statistics, space-to-depth stem; exact to float32
-    rounding) in the BN model's dtype. Training keeps the BN model."""
-    bn = pipe.model
-    hidden = bn.head_hidden.out_features if bn.head_hidden is not None else 0
-    fused = FusedResNetRegressor(bn.head.out_features, bn.stage_sizes,
-                                 bn.width, bn.dtype, hidden)
-    fused.load_state_dict(fold_bn_model(bn))
-    fused = fused.to(pipe.device, memory_format=torch.channels_last).eval()
-    return dataclasses.replace(pipe, model=fused)
+    rounding) in the BN model's dtype, and the fused detail encoder where
+    there is one. Training keeps the BN model."""
+    detail = pipe.detail_model
+    return dataclasses.replace(
+        pipe, model=_fused(pipe.model, pipe.device),
+        detail_model=None if detail is None else _fused(detail,
+                                                        pipe.device))
 
 
 def regress_coeffs(pipe: Pipeline, images, train: bool = False):

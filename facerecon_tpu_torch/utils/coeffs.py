@@ -6,7 +6,9 @@ into a typed NamedTuple. Works on batched (B, n_coeff) or unbatched
 (n_coeff,) tensors; the parts are views of the input. A FLAME config
 (cfg.model == "flame") splits DECA's 236 codes
   [shape 100 | tex 50 | exp 50 | pose 6 | cam 3 | light 27]
-(DECA's param_list order) into `DECACodes` instead.
+(DECA's param_list order) into `DECACodes` instead; a detail config
+(cfg.n_detail > 0) has the detail code last, [... | detail n_detail],
+and the coarse config's `detail` is None.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class DECACodes(NamedTuple):
     pose: torch.Tensor    # (..., 6) global rotation | jaw, axis-angle
     cam: torch.Tensor     # (..., 3) orthographic scale s, tx, ty
     light: torch.Tensor   # (..., 27) SH-9 x RGB, coefficient-major (9, 3)
+    detail: torch.Tensor | None = None  # (..., n_detail) detail code
 
 
 def split_coeff(coeff: torch.Tensor, cfg: FaceReconConfig):
@@ -46,4 +49,4 @@ def split_coeff(coeff: torch.Tensor, cfg: FaceReconConfig):
 
 
 def join_coeff(c) -> torch.Tensor:
-    return torch.cat(list(c), dim=-1)
+    return torch.cat([t for t in c if t is not None], dim=-1)

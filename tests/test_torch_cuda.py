@@ -108,15 +108,17 @@ def card():
 
 def _launches(**counts):
     """A path's launch counts: the named kernels' counts, 0 for the rest,
-    one launch of each binning kernel for each K1, K2, K4 and textured
-    launch (each rasterizes windows that band_windows binned for it), and
-    one of the record kernel for each K1 and textured launch (the paths
-    here run those under no_grad; K2's records are the eager ops)."""
+    one launch of each binning kernel for each K1, K2, K4, textured and
+    fetch launch (each rasterizes windows that band_windows binned for
+    it), and one of the record kernel for each K1, textured and fetch
+    launch (the paths here run those under no_grad; K2's records are the
+    eager ops). The UV detail kernel bins nothing."""
     want = dict.fromkeys(_build.KERNELS, 0) | counts
+    textured = want["raster_texture"] + want["raster_texfetch"]
     n = (want["raster_shade"] + want["raster_select"] + want["raster_pos"]
-         + want["raster_texture"])
+         + textured)
     return want | {"bin_setup": n, "bin_windows": n,
-                   "records": want["raster_shade"] + want["raster_texture"]}
+                   "records": want["raster_shade"] + textured}
 
 
 def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,

@@ -213,7 +213,8 @@ def test_summarize_reads_kernels_copies_and_the_ports_kernels():
                             "select_grad": 0, "raster_pos": 0,
                             "ctz_walk": 0, "bin_setup": 0,
                             "bin_windows": 0, "raster_texture": 0,
-                            "geometry": 0, "records": 0}
+                            "geometry": 0, "records": 0, "uv_detail": 0,
+                            "raster_texfetch": 0}
 
 
 def test_summarize_reads_the_ports_stages():
