@@ -46,7 +46,10 @@ Phases (any failed check raises, and the script exits non-zero):
      and the fetch of the texture it shaded (raster_texfetch_kernel in
      csrc/raster_texture.cu, through ops/rasterize.texfetch_windows;
      tri_id exact, colour and barycentrics within 1e-6), each launched
-     alone. Each kernel's ms a
+     alone, and before them the decoder's kernels (csrc/upconv.cu: 5
+     upconv and 1 outconv launches, within twice the eager cuDNN-TF32
+     decoder's gap to the float32 decoder, its library_ms the eager
+     decoder on channels_last tensors). Each kernel's ms a
      launch (CUDA events), its plain version's ms and its bound. The ops
      bounds of K1, K2 and K4 count what the inputs need, the same for
      any design (the pixel centers in each triangle's bounding box, 7
@@ -62,7 +65,8 @@ Phases (any failed check raises, and the script exits non-zero):
      the distinct albedo texels the covered pixels' bilinear footprints
      read, and the tests the inputs need); the UV detail kernel's
      perfbench/work_detail.uv_detail_bytes and the fetch's
-     work_detail.texfetch_work.
+     work_detail.texfetch_work; the decoder's perfbench/work_decoder
+     (per layer the larger of FLOPs at the TF32 peak and bytes).
   4. K5 (floor): K1, K2 and K4 alone on inputs precomputed once at
      benchmarks/floor_probe.py's defaults (batch 128, tile_h 2, 4 columns,
      frontal coefficients), each real-mask call held against its plain
@@ -1126,16 +1130,75 @@ def check_texfetch(kind, codes, geo, texture):
                 bound_by=bound_by, max_abs_err=err)
 
 
+def _channels_last_decoder(dec, z):
+    """The eager decoder on channels_last tensors (the yardstick
+    library_ms; the port never calls it): the linear layer's NHWC output,
+    then each layer's plain version, whose NHWC tensors take cuDNN's
+    NHWC convolutions in TF32."""
+    from facerecon_tpu_torch.models import deca_detail as MD
+    s = dec.init_size
+    x = dec.l1(z).view(z.shape[0], s, s, MD.CHANNELS[0])
+    for w, b in zip(dec.conv_w, dec.conv_b):
+        x = MD.upconv_reference(x, w, b)
+    return MD.outconv_reference(x, dec.out_w, dec.out_b)
+
+
+def check_decoder(kind, codes):
+    """The detail decoder's kernels (csrc/upconv.cu, through the pack's
+    folded decoder) on DETAIL_CELL's decoder and codes at its microbatch:
+    the linear layer, 5 upconv and 1 outconv launches and no other port
+    kernel, its largest gap to the reference's float32 decoder (TF32 off)
+    at most twice the plain version's (the eager NCHW decoder, cuDNN in
+    TF32), then timed beside the plain version's one call and the eager
+    decoder on channels_last tensors, and bounded by
+    perfbench/work_decoder (the layers after the linear one). Returns
+    the kernels line's numbers."""
+    from facerecon_tpu_torch.models.deca_detail import decoder_input
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    from perfbench import work_decoder
+    dec = kind.flame.detail.decoder
+    z = decoder_input(split_coeff(codes, kind.cfg))
+    with torch.no_grad():
+        _build.reset_launches()
+        got = dec(z)
+        torch.cuda.synchronize()
+        want = {k: 0 for k in _build.KERNELS} | {"upconv": 5, "outconv": 1}
+        if _build.LAUNCHES != want:
+            raise AssertionError(f"decoder: launches {dict(_build.LAUNCHES)}")
+        ref, plain_ms = _plain_ms(lambda: dec.forward_reference(z))
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = kind.det.generator(z)
+        err, ref_err = (float((a - f32).abs().max()) for a in (got, ref))
+        del ref, f32
+        if not err <= 2 * ref_err:
+            raise AssertionError(f"decoder: gap to float32 {err}, twice "
+                                 f"the eager TF32 decoder's {ref_err}")
+        ms = _time_ms(lambda: dec(z), reps=20)
+        library_ms = _time_ms(lambda: _channels_last_decoder(dec, z), reps=5)
+    bound_ms = 1e3 * work_decoder.least_seconds(kind.cfgf, z.shape[0])
+    print(f"decoder[{DETAIL_CELL}] batch={z.shape[0]} "
+          f"{kind.uv_size}^2 maps kernels={ms:.4f} ms "
+          f"plain={plain_ms:.2f} ms channels_last={library_ms:.3f} ms "
+          f"bound={bound_ms:.4f} ms (TF32 FLOPs or bytes by layer) "
+          f"max|err| to float32={err:.3g} (eager TF32 {ref_err:.3g}) on "
+          f"{_card_line()}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="flops and bytes by layer", max_abs_err=err,
+                library_ms=library_ms)
+
+
 def check_detail():
-    """The detail cell's two kernels on one set of its inputs: the UV
-    detail kernel, then the fetch of the texture it shaded."""
+    """The detail cell's kernels on one set of its inputs: the decoder's,
+    the UV detail kernel, then the fetch of the texture it shaded."""
     kind, codes, geo, args = _detail_inputs()
+    dec = check_decoder(kind, codes)
     uv, texture = check_uv_detail(kind, args)
     fetch = check_texfetch(kind, codes, geo, texture)
     kind.free()
     del kind, codes, geo, args, texture
     torch.cuda.empty_cache()
-    return uv, fetch
+    return dec, uv, fetch
 
 
 def _probe_cases(name, cases, inner, reps, t0, card):
@@ -1270,8 +1333,8 @@ def main() -> int:
     measured["geometry"] = _timed("geometry", check_geometry, cfg, assets)
     measured["records"] = _timed("records", check_records, cfg, assets)
     measured["raster_texture"] = _timed("texture", check_texture)
-    measured["uv_detail"], measured["raster_texfetch"] = _timed(
-        "detail", check_detail)
+    (measured["upconv"], measured["uv_detail"],
+     measured["raster_texfetch"]) = _timed("detail", check_detail)
     _timed("floor", check_floor, cfg, assets)
     measured["ctz_walk"] = _timed("ctz_walk", check_ctz_walk)
     _timed("probes", check_bench_probes)
@@ -1291,7 +1354,9 @@ def main() -> int:
                    "_render_fields, _stack24)",
         "uv_detail": "none (the JAX package has no DECA detail path)",
         "raster_texfetch": "none (the JAX package has no DECA detail "
-                           "path)"}
+                           "path)",
+        "upconv": "none (the JAX package has no DECA detail path; the row "
+                  "is the decoder: 5 upconv + 1 outconv launches)"}
     kernels = [dict(
         name=name, route="cuda",
         source="facerecon_tpu_torch/csrc/"

@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, loaded with ctypes (no PyTorch
 headers, so a build takes seconds). A source may hold more than one
 kernel's C entry (`SOURCES`: the two binning kernels share
-`csrc/binning.cu`, and the textured kernel and the detailed image's
-fetch `csrc/raster_texture.cu`); it builds once for all of them. Libraries go into
+`csrc/binning.cu`, the textured kernel and the detailed image's fetch
+`csrc/raster_texture.cu`, and the detail decoder's two `csrc/upconv.cu`); it builds once for all of them. Libraries go into
 `_build/` beside the package (listed in .gitignore), named by a hash of
 the source, every header in `csrc/` and the flags, so a checkout builds
 what it needs on its first call and reuses it afterwards, and an edited
@@ -41,11 +41,12 @@ import torch
 
 KERNELS = ("raster_shade", "raster_select", "select_grad", "raster_pos",
            "ctz_walk", "bin_setup", "bin_windows", "raster_texture",
-           "geometry", "records", "uv_detail", "raster_texfetch")
+           "geometry", "records", "uv_detail", "raster_texfetch", "upconv",
+           "outconv")
 # the source, csrc/<source>.cu, of each kernel not in a file of its own
 # name
 SOURCES = {"bin_setup": "binning", "bin_windows": "binning",
-           "raster_texfetch": "raster_texture"}
+           "raster_texfetch": "raster_texture", "outconv": "upconv"}
 # the device function each kernel's C entry launches exactly once a
 # launch (K3's and the geometry's last pass), as a profiler's trace names
 # it
@@ -60,7 +61,9 @@ SYMBOLS = {"raster_shade": "raster_shade_kernel",
            "geometry": "geometry_kernel",
            "records": "records_kernel",
            "uv_detail": "uv_detail_kernel",
-           "raster_texfetch": "raster_texfetch_kernel"}
+           "raster_texfetch": "raster_texfetch_kernel",
+           "upconv": "upconv_kernel",
+           "outconv": "outconv_kernel"}
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -83,6 +83,7 @@ import torch
 from facerecon_tpu_torch import oracle
 from facerecon_tpu_torch.config import tiny_config
 from facerecon_tpu_torch.data.synthetic import sample_coeffs
+from facerecon_tpu_torch.models.deca_detail import N_UP
 from facerecon_tpu_torch.ops import _build
 from facerecon_tpu_torch.ops import rasterize as R
 from facerecon_tpu_torch.ops.geometry import coeffs_to_geometry, device_bfm
@@ -112,13 +113,17 @@ def _launches(**counts):
     fetch launch (each rasterizes windows that band_windows binned for
     it), and one of the record kernel for each K1, textured and fetch
     launch (the paths here run those under no_grad; K2's records are the
-    eager ops). The UV detail kernel bins nothing."""
+    eager ops). The UV detail kernel bins nothing; each of its launches (a
+    detail render or reconstruct) follows one decode of the displacement
+    map: five upconv launches and one outconv launch."""
     want = dict.fromkeys(_build.KERNELS, 0) | counts
     textured = want["raster_texture"] + want["raster_texfetch"]
     n = (want["raster_shade"] + want["raster_select"] + want["raster_pos"]
          + textured)
     return want | {"bin_setup": n, "bin_windows": n,
-                   "records": want["raster_shade"] + textured}
+                   "records": want["raster_shade"] + textured,
+                   "upconv": N_UP * want["uv_detail"],
+                   "outconv": want["uv_detail"]}
 
 
 def _kernel_inputs(card, order, batch=3, tile_h=None, n_cols=None,

@@ -15,8 +15,13 @@ decoder's convolutions in bfloat16) are judged not correct.
 The tests marked `cuda` hold the UV detail kernel (csrc/uv_detail.cu)
 and the detailed image's fetch (raster_texfetch_kernel in
 csrc/raster_texture.cu) against their plain versions at the published
-sizes, count a detail render's launches, run Pipeline.reconstruct at
-batch 8 on the card against the reference and the cell at batch 8; they
+sizes; the decoder's kernels (csrc/upconv.cu): each upconv layer at its
+published shape, its interpolation exact, and the whole decoder at batch
+8 and 256 and at ragged sizes, each no further from the float32 decoder
+(TF32 off) than twice the eager cuDNN-TF32 decoder's gap or TF32's own;
+count a detail render's launches (test_torch_cuda._launches), run
+Pipeline.reconstruct at batch 8 on the card against the reference, the
+cell at batch 8, and the cell's bn_eps fault through the kernels; they
 skip without a card. The file imports nothing of JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_deca_detail.py
@@ -27,6 +32,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from facerecon_tpu_torch import profile_trace as PT
@@ -40,9 +46,10 @@ from facerecon_tpu_torch.utils.coeffs import (DECACodes, join_coeff,
 from facerecon_tpu_torch.utils.flame import (flame_assets, load_npz,
                                              save_npz)
 from perfbench import (check, control, detail_data, flame_data, run, spec,
-                       work_detail)
+                       work_decoder, work_detail)
 from perfbench.kinds import flame_detail as FD
 from perfbench.reference import deca, deca_detail
+from test_torch_cuda import _launches
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 2026
@@ -342,6 +349,73 @@ def test_work_counts():
     assert work_detail.PEAK_TF32 == 494.5e12
 
 
+def test_decoder_least_time():
+    """kdec_roofline_pct's count at DECA's widths and 256 faces: ~1.41 ms,
+    the first four layers by FLOPs, the fifth and the last convolution by
+    bytes; the linear layer left out."""
+    cfgf = spec.cell("deca-detail224.b512")["config_file"]
+    layers = work_decoder.layers(cfgf, 256)
+    assert abs(work_decoder.least_seconds(cfgf, 256) - 1.4076e-3) < 1e-6
+    assert sum(f for f, _ in layers) == 256 * (
+        work_detail.decoder_flops(cfgf) - 2 * 181 * 128 * 64
+        - 2 * 256 ** 2 * 16 * 9)
+    by_flops = [f / work_detail.PEAK_TF32 > b / 3.35e12 for f, b in layers]
+    assert by_flops == [True] * 4 + [False] * 2
+    assert layers[-1][1] == 4 * (256 * 256 ** 2 * 17 + 9 * 16 + 1)
+
+
+class _Trace:
+    def __init__(self, seconds):
+        self.seconds = seconds
+
+    def kernel_seconds(self, symbol):
+        return self.seconds.get(symbol, (0, 0.0))
+
+
+def test_decoder_roofline_reads_only_its_kernels():
+    """The metric reads the least time x the microbatches (outconv's
+    launches) over both kernels' device time, and nothing from a trace
+    without them (the eager decoder's)."""
+    import types
+    cfgf = spec.cell("deca-detail224.b512")["config_file"]
+    kind = types.SimpleNamespace(cfgf=cfgf,
+                                 captured=[torch.zeros(256, 364)] * 2)
+    ctx = {"kind": kind, "trace": _Trace({})}
+    assert work_decoder.roofline_pct(ctx) is None
+    ctx["trace"] = _Trace({"upconv_kernel": (10, 0.008),
+                           "outconv_kernel": (2, 0.002)})
+    want = 100 * work_decoder.least_seconds(cfgf, 256) * 2 / 0.01
+    assert abs(work_decoder.roofline_pct(ctx) - want) < 1e-9
+    assert work_decoder.roofline_pct({"kind": kind, "trace": None}) is None
+
+
+def test_the_decoder_layers_compose_the_plain_decoder(state):
+    """The folded decoder's NHWC layers (upconv and outconv take their
+    plain versions on the CPU) compose its plain forward; the weights by
+    tap round-trip; the interpolation's plain version is F.interpolate's
+    within float32 rounding; an unknown width is refused."""
+    dec = MD.FusedDetailGenerator.fold(generator(state))
+    z = FD.decoder_inputs(codes_at(4))
+    with torch.no_grad():
+        x = dec.l1(z).view(4, 1, 1, 128)
+        for w, b in zip(dec.conv_w, dec.conv_b):
+            x = MD.upconv(x, w, b)
+        got = MD.outconv(x, dec.out_w, dec.out_b)
+        want = dec(z)
+    assert got.shape == want.shape == (4, 1, UV, UV)
+    assert float((got - want).abs().max()) < 1e-6 * 0.01 + 1e-7
+    w = torch.randn(64, 32, 3, 3)
+    assert torch.equal(MD.oihw(MD.by_tap(w)), w)
+    assert torch.equal(MD.by_tap(w)[1 * 3 + 2], w[:, :, 1, 2])
+    x = torch.randn(2, 5, 5, 8)
+    up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                       mode="bilinear", align_corners=False)
+    assert float((MD.upsample_reference(x) - up.permute(0, 2, 3, 1))
+                 .abs().max()) < 1e-6
+    with pytest.raises(ValueError, match="no tiling"):
+        MD.upconv(x, torch.zeros(9, 8, 8), torch.zeros(8))
+
+
 def test_the_configuration_states_its_stand_ins(arrays):
     cfgf = spec.cell("deca-detail224.b512")["config_file"]
     st = cfgf["stand_ins"]
@@ -484,8 +558,9 @@ def test_reconstruct_at_batch_8_on_the_card(card, full):
     """Pipeline.reconstruct on the detail config (bf16 fused ResNet-50s
     for E_c and E_d, the TF32 decoder) at batch 8, judged against the
     reference at the cell's limits; the UV detail kernel, the fetch, the
-    record kernel and each binning kernel launch once a call, nothing
-    else of the port, and TF32 is off again after the decoder."""
+    record kernel and each binning kernel launch once a call, the
+    decoder's kernels 5 + 1 times, nothing else of the port, and TF32 is
+    off again after the decoder."""
     arr, st, _, fl, det = full
     cfg = deca_config(n_detail=128)
     pipe = _reconstruct_pipe(cfg, flame_assets(arr), st, True, card,
@@ -495,9 +570,7 @@ def test_reconstruct_at_batch_8_on_the_card(card, full):
     before = dict(_build.LAUNCHES)
     codes, _, out = pipe.reconstruct(images)
     torch.cuda.synchronize()
-    assert _launched(before) == dict.fromkeys(_build.KERNELS, 0) | {
-        "uv_detail": 1, "raster_texfetch": 1, "records": 1,
-        "bin_setup": 1, "bin_windows": 1}
+    assert _launched(before) == _launches(uv_detail=1, raster_texfetch=1)
     assert not torch.backends.cudnn.allow_tf32
     ok, compared = check.verdict(FD.judge(_prog(out, codes, pipe.bfm), fl,
                                           det, 224), _limits())
@@ -515,3 +588,193 @@ def test_cell_at_batch_8_is_correct(card):
     launched = _launched(before)
     assert launched["uv_detail"] == launched["raster_texfetch"] > 0
     assert launched["raster_texture"] == 0
+    assert launched == _launches(uv_detail=launched["uv_detail"],
+                                 raster_texfetch=launched["uv_detail"])
+
+
+@pytest.mark.cuda
+def test_a_detail_render_launches(card, full):
+    """render_coeffs on the detail pack at 256 faces: the FLAME path's
+    record kernel and binning, the decoder's 5 upconv and 1 outconv, the
+    UV detail kernel and the fetch, each as test_torch_cuda._launches
+    says, and nothing else of the port."""
+    _, _, pack, _, _ = full
+    cfg = deca_config(n_detail=128)
+    c = split_coeff(torch.from_numpy(FD.sample_codes(
+        np.random.default_rng(9), TINY_SIZES, 256)).to(card), cfg)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        out = render_coeffs(c, pack, cfg, inference=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == _launches(uv_detail=1, raster_texfetch=1)
+    assert out.displacement_map.shape == (256, 256, 256)
+
+
+@pytest.mark.cuda
+def test_the_bn_eps_fault_goes_through_the_kernels(card):
+    """The cell's bn_eps fault (the decoder folded with the wrong eps)
+    still decodes through upconv and outconv, and the cell is not
+    correct."""
+    cell = copy.deepcopy(spec.cell("deca-detail224.b512"))
+    cell["traffic"].update(batch=8, microbatch=8)
+    before = dict(_build.LAUNCHES)
+    r = run.run_cell(cell, 2 ** 31 + 92, 0.5, False, card,
+                     fault=FD.FAULTS["bn_eps"])
+    assert not r["correct"], r["compared"]
+    launched = _launched(before)
+    assert launched["outconv"] == launched["uv_detail"] > 0
+    assert launched["upconv"] == 5 * launched["outconv"]
+
+
+# the decoder's kernels: inputs, the float32 and TF32 yardsticks
+
+LAYERS = [(128, 128, 8), (128, 64, 16), (64, 64, 32), (64, 32, 64),
+          (32, 16, 128)]
+
+
+def _tf32(t):
+    """t rounded to TF32 as the kernel's cvt.rna does: to nearest, ties
+    away from zero, 10 mantissa bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _layer_inputs(card, cin, cout, s, batch, seed):
+    g = torch.Generator(card).manual_seed(seed)
+    x = torch.randn((batch, s, s, cin), device=card, generator=g)
+    w = torch.randn((9, cout, cin), device=card, generator=g) / (
+        9 * cin) ** 0.5
+    b = torch.randn((cout,), device=card, generator=g) * 0.1
+    return x, w, b
+
+
+def _eager_layer(x, w, b, tf32, upsampled=False):
+    """The layer by eager ops, NCHW, cuDNN's TF32 on or off; x NHWC (the
+    upsampled image if `upsampled`)."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        u = x.permute(0, 3, 1, 2).contiguous()
+        if not upsampled:
+            u = F.interpolate(u, scale_factor=2, mode="bilinear",
+                              align_corners=False)
+        y = F.leaky_relu(F.conv2d(u, MD.oihw(w), b, padding=1), MD.SLOPE)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    return y.permute(0, 2, 3, 1)
+
+
+def _emulated_decoder(dec, z):
+    """The decoder with the kernels' roundings and TF32 off: each layer's
+    upsampled input and weights rounded to TF32, products and sums in
+    float32; the last convolution in float32."""
+    s = dec.init_size
+    torch.backends.cudnn.allow_tf32 = False
+    x = dec.l1(z).view(z.shape[0], s, s, MD.CHANNELS[0])
+    for w, b in zip(dec.conv_w, dec.conv_b):
+        x = _eager_layer(_tf32(MD.upsample_reference(x)), _tf32(w), b,
+                         False, upsampled=True)
+    x = F.conv2d(x.permute(0, 3, 1, 2), MD.oihw(dec.out_w[:, None]),
+                 dec.out_b, padding=1)
+    return torch.tanh(x) * MD.OUT_SCALE
+
+
+def _gap(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,s", LAYERS)
+def test_upconv_layer_within_tf32(card, cin, cout, s):
+    """Each layer at its published shape (batch 8): one launch; within
+    1e-5 x max |y| of the same layer on TF32-rounded operands in float32
+    (what the kernel computes, in another order), and no further from the
+    float32 layer than twice the eager cuDNN-TF32 layer's gap."""
+    x, w, b = _layer_inputs(card, cin, cout, s, 8, cin * 7 + cout)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        got = MD.upconv(x, w, b)
+        torch.cuda.synchronize()
+        assert _launched(before) == {k: int(k == "upconv")
+                                     for k in _build.KERNELS}
+        f32 = _eager_layer(x, w, b, False)
+        tf = _eager_layer(x, w, b, True)
+        emu = _eager_layer(_tf32(MD.upsample_reference(x)), _tf32(w), b,
+                           False, upsampled=True)
+    assert got.shape == (8, 2 * s, 2 * s, cout)
+    scale = float(f32.abs().max())
+    assert _gap(got, emu) <= 1e-5 * scale, (_gap(got, emu), scale)
+    assert _gap(got, f32) <= 2 * _gap(tf, f32), (_gap(got, f32),
+                                                _gap(tf, f32))
+    assert float((got < 0).float().mean()) > 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,s", LAYERS + [(128, 128, 3),
+                                                 (32, 16, 5), (64, 32, 1)])
+def test_upconv_interpolation_is_exact(card, cin, cout, s):
+    """With one weight of 1 at the centre tap (output channel o reads
+    input channel o x cin // cout) and no bias, the kernel gives the
+    plain interpolation rounded to TF32, then LeakyReLU, bit for bit: the
+    source indices, the clamp at the last row and column and the order
+    of the sums are PyTorch's; also at sizes that are no tile multiple."""
+    x, _, _ = _layer_inputs(card, cin, cout, s, 2, s)
+    pick = torch.arange(cout, device=card) * cin // cout
+    w = torch.zeros((9, cout, cin), device=card)
+    w[4, torch.arange(cout, device=card), pick] = 1.0
+    b = torch.zeros(cout, device=card)
+    got = MD.upconv(x, w, b)
+    u = _tf32(MD.upsample_reference(x))[..., pick]
+    assert torch.equal(got, torch.where(u > 0, u, u * MD.SLOPE))
+
+
+def _decoder_gaps(dec, z, float32):
+    """(kernel's gap, eager cuDNN-TF32 decoder's gap, emulated TF32
+    decoder's gap), each to `float32`, the unfolded float32 decoder run
+    with TF32 off, and the launches of the kernel's call."""
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        got = dec(z)
+        torch.cuda.synchronize()
+        launched = _launched(before)
+        tf = dec.forward_reference(z)
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = torch.cat([float32(part) for part in z.split(64)])
+        emu = torch.cat([_emulated_decoder(dec, part)
+                         for part in z.split(64)])
+    assert got.shape == f32.shape == (z.shape[0], 1) + got.shape[2:]
+    assert not torch.backends.cudnn.allow_tf32
+    return _gap(got, f32), _gap(tf, f32), _gap(emu, f32), launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 256])
+def test_decoder_kernels_within_tf32(card, full, batch):
+    """The pack's folded decoder at the published sizes: the linear
+    layer, 5 upconv and 1 outconv launches and nothing else of the port;
+    its largest gap to the reference's float32 decoder at most twice the
+    eager cuDNN-TF32 decoder's."""
+    _, _, pack, _, det = full
+    z = FD.decoder_inputs(codes_at(batch, seed=10).to(card))
+    got, tf, emu, launched = _decoder_gaps(pack.detail.decoder, z,
+                                           det.generator)
+    assert launched == dict.fromkeys(_build.KERNELS, 0) | {"upconv": 5,
+                                                           "outconv": 1}
+    assert 0 < got <= 2 * tf, (got, tf, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uv,batch", [(64, 1), (96, 3)])
+def test_decoder_kernels_at_ragged_sizes(card, uv, batch):
+    """Start sizes 2 and 3 (maps of 64^2 and 96^2: layers of 4 to 32 and
+    6 to 96 pixels a side, no tile multiple) at batch 1 and 3: within
+    twice the larger of the eager cuDNN-TF32 decoder's gap and the
+    emulated TF32 decoder's (cuDNN may keep small shapes in float32)."""
+    calib = FD.decoder_inputs(codes_at(16, seed=uv).to(card))
+    gen = generator(detail_data.decoder_state(SEED, LATENT, uv, calib,
+                                              card), uv).to(card)
+    dec = MD.FusedDetailGenerator.fold(gen)
+    z = FD.decoder_inputs(codes_at(batch, seed=uv + 1).to(card))
+    got, tf, emu, launched = _decoder_gaps(dec, z, gen)
+    assert launched["upconv"] == 5 and launched["outconv"] == 1
+    assert 0 < got <= 2 * max(tf, emu), (got, tf, emu)
