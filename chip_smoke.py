@@ -49,7 +49,12 @@ Phases (any failed check raises, and the script exits non-zero):
      alone, and before them the decoder's kernels (csrc/upconv.cu: 5
      upconv and 1 outconv launches, within twice the eager cuDNN-TF32
      decoder's gap to the float32 decoder, its library_ms the eager
-     decoder on channels_last tensors). Each kernel's ms a
+     decoder on channels_last tensors); GaussianAvatars' four kernels
+     (csrc/gaussians.cu: gauss_prep, gauss_emit, gauss_ranges,
+     gauss_blend, through ops/gavatar) on the inputs of the cell
+     gavatar802.b256 at its microbatch of 64 frames (seed GAUSS_SEED),
+     each launched alone (the preprocess within 2 ulp of its plain
+     version, the rest bit for bit). Each kernel's ms a
      launch (CUDA events), its plain version's ms and its bound. The ops
      bounds of K1, K2 and K4 count what the inputs need, the same for
      any design (the pixel centers in each triangle's bounding box, 7
@@ -66,7 +71,9 @@ Phases (any failed check raises, and the script exits non-zero):
      read, and the tests the inputs need); the UV detail kernel's
      perfbench/work_detail.uv_detail_bytes and the fetch's
      work_detail.texfetch_work; the decoder's perfbench/work_decoder
-     (per layer the larger of FLOPs at the TF32 peak and bytes).
+     (per layer the larger of FLOPs at the TF32 peak and bytes); the
+     Gaussians' preprocess and blend perfbench/work_gavatar's prep_work
+     and splat_work, the emit and the ranges the bytes they move.
   4. K5 (floor): K1, K2 and K4 alone on inputs precomputed once at
      benchmarks/floor_probe.py's defaults (batch 128, tile_h 2, 4 columns,
      frontal coefficients), each real-mask call held against its plain
@@ -1201,6 +1208,130 @@ def check_detail():
     return dec, uv, fetch
 
 
+GAUSS_CELL = "gavatar802.b256"
+GAUSS_SEED = 2 ** 31 + 19
+
+
+def _gauss_hold(name, got, ref, ulps=0):
+    """Fails unless every field equals the plain version's, or lies within
+    `ulps` float32 ulps of it; returns the largest |gap|."""
+    err = 0.0
+    for field, a, b in zip(getattr(got, "_fields", range(len(got))), got,
+                           ref):
+        gap = (a.double() - b.double()).abs()
+        tol = (ulps * torch.finfo(torch.float32).eps
+               * torch.maximum(a.abs(), b.abs()).double()
+               if a.dtype == torch.float32 else 0.0)
+        if not bool((gap <= tol).all()):
+            raise AssertionError(f"{name}: {field} differs from the plain "
+                                 f"version by {float(gap.max())}")
+        err = max(err, float(gap.max()))
+    return err
+
+
+def check_gaussians():
+    """GaussianAvatars' four kernels (csrc/gaussians.cu, through
+    ops/gavatar) on GAUSS_CELL's inputs at its microbatch of 64 frames
+    (its configuration's stand-ins: 100,000 Gaussians on the 5,023-vertex
+    FLAME, 802 x 550): each launched alone and held against its plain
+    version on the card (the preprocess within 2 ulp, the emit, the tile
+    ranges and the blend bit for bit), then timed beside the plain
+    version's one call, and bounded: the preprocess and the blend by
+    perfbench/work_gavatar's counts, the emit by its reads (28 B a frame
+    and Gaussian) and writes (12 B a pair), the ranges by 24 B a pair and
+    8 B a tile. The stable sort between them is the library's."""
+    from facerecon_tpu_torch.ops import _build
+    from facerecon_tpu_torch.ops import gavatar as G
+    from facerecon_tpu_torch.utils.coeffs import split_coeff
+    from perfbench import spec, work_gavatar
+    from perfbench.kinds import gavatar_render as GR
+    kind = GR.Kind(spec.cell(GAUSS_CELL), GAUSS_SEED, torch.device(DEVICE))
+    kind.setup()
+    cfg, av = kind.cfg, kind.avatar
+    h, w = cfg.render_hw
+    codes = kind.codes[:kind.micro]
+    c = split_coeff(codes, cfg)
+    bsz = codes.shape[0]
+    rows = {}
+    with torch.no_grad():
+        verts = G.posed_vertices(c.shape, c.exp, c.pose, c.trans, av)
+        cams = G.cameras(c.view, c.focal)
+        _build.reset_launches()
+        sp = G.preprocess(verts, cams, av, h, w)
+        torch.cuda.synchronize()
+        _launched_alone("gauss_prep")
+        ref, plain_ms = _plain_ms(lambda: G.preprocess_reference(
+            verts, cams, av, h, w))
+        err = _gauss_hold("gauss_prep", sp, ref, ulps=2)
+        del ref
+        ms = _time_ms(lambda: G.preprocess(verts, cams, av, h, w), reps=20)
+        bound_ms, by = _bound(*work_gavatar.prep_work(bsz, kind.sizes),
+                              "gauss_prep")
+        rows["gauss_prep"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=by, max_abs_err=err)
+
+        off = torch.cumsum(sp.count.reshape(-1), 0)
+        n = int(off[-1])
+        _build.reset_launches()
+        keys, ids = G.emit_pairs(sp, off, n, h, w)
+        torch.cuda.synchronize()
+        _launched_alone("gauss_emit")
+        ref, plain_ms = _plain_ms(lambda: G.emit_pairs_reference(
+            sp, off, n, h, w))
+        _gauss_hold("gauss_emit", (keys, ids), ref)
+        del ref
+        ms = _time_ms(lambda: G.emit_pairs(sp, off, n, h, w), reps=20)
+        bound_ms, by = _bound(bsz * av.n_gaussians * 28 + n * 12, 0,
+                              "gauss_emit")
+        rows["gauss_emit"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=by, max_abs_err=0.0)
+
+        skeys, order = G.sort_pairs(keys)
+        tx, ty = G.tile_grid(h, w)
+        n_t = bsz * tx * ty
+        _build.reset_launches()
+        ranges, sids = G.tile_ranges(skeys, order, ids, n_t)
+        torch.cuda.synchronize()
+        _launched_alone("gauss_ranges")
+        ref, plain_ms = _plain_ms(lambda: G.tile_ranges_reference(
+            skeys, order, ids, n_t))
+        _gauss_hold("gauss_ranges", (ranges, sids), ref)
+        del ref
+        ms = _time_ms(lambda: G.tile_ranges(skeys, order, ids, n_t), reps=20)
+        bound_ms, by = _bound(n * 24 + n_t * 8, 0, "gauss_ranges")
+        rows["gauss_ranges"] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=by,
+                                    max_abs_err=0.0)
+        del keys, skeys, order, ids
+
+        bg = kind.background
+        _build.reset_launches()
+        got = G.blend(ranges, sids, sp.rec, h, w, bg)
+        torch.cuda.synchronize()
+        _launched_alone("gauss_blend")
+        ref, plain_ms = _plain_ms(lambda: G.blend_reference(
+            ranges, sids, sp.rec, h, w, bg))
+        _gauss_hold("gauss_blend", got, ref)
+        del ref, got
+        ms = _time_ms(lambda: G.blend(ranges, sids, sp.rec, h, w, bg),
+                      reps=20)
+        bound_ms, by = _bound(*work_gavatar.splat_work(
+            codes, kind.av, kind.hw, bg), "gauss_blend")
+        rows["gauss_blend"] = dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=by,
+                                   max_abs_err=0.0)
+    for name, m in rows.items():
+        print(f"{name}[{GAUSS_CELL}] batch={bsz} {av.n_gaussians} Gaussians "
+              f"{h}x{w} {n} pairs kernel={m['ms']:.4f} ms "
+              f"plain={m['plain_ms']:.2f} ms bound={m['bound_ms']:.4f} ms "
+              f"({m['bound_by']}) max|err|={m['max_abs_err']:.3g} on "
+              f"{_card_line()}")
+    kind.free()
+    del kind, sp, ranges, sids, verts, cams
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _probe_cases(name, cases, inner, reps, t0, card):
     """Fails on a non-finite or non-positive time or a non-finite sum;
     prints the twin's summary line."""
@@ -1335,6 +1466,7 @@ def main() -> int:
     measured["raster_texture"] = _timed("texture", check_texture)
     (measured["upconv"], measured["uv_detail"],
      measured["raster_texfetch"]) = _timed("detail", check_detail)
+    measured.update(_timed("gaussians", check_gaussians))
     _timed("floor", check_floor, cfg, assets)
     measured["ctz_walk"] = _timed("ctz_walk", check_ctz_walk)
     _timed("probes", check_bench_probes)
@@ -1356,7 +1488,10 @@ def main() -> int:
         "raster_texfetch": "none (the JAX package has no DECA detail "
                            "path)",
         "upconv": "none (the JAX package has no DECA detail path; the row "
-                  "is the decoder: 5 upconv + 1 outconv launches)"}
+                  "is the decoder: 5 upconv + 1 outconv launches)",
+        **dict.fromkeys(("gauss_prep", "gauss_emit", "gauss_ranges",
+                         "gauss_blend"),
+                        "none (the JAX package renders no Gaussians)")}
     kernels = [dict(
         name=name, route="cuda",
         source="facerecon_tpu_torch/csrc/"

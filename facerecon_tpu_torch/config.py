@@ -21,6 +21,15 @@ and light groups have one layout only (DECA_FIXED), so they are no
 fields. `is_flame` reads the model of any config, the JAX package's
 included (which has no `model` and is a BFM config).
 
+`model` "gavatar" is GaussianAvatars (Qian et al., arXiv:2312.02069):
+FLAME driven by the full 15-number pose and a translation, with the
+asset pack's 3D Gaussians (SH degree 3) bound to its triangles, splatted
+into an image_height x image_width render (the first render that need
+not be square; 0 means image_size). Its codes
+are [shape | exp | pose 15 | trans 3 | view 12 | focal 2]: the frame's
+FLAME parameters, then its pinhole camera (AVATAR_FIXED; utils/coeffs.
+AvatarCodes). `gavatar_config` gives the published sizes.
+
 The Pallas TPU kernel's lane/window constants (_CHUNK, _WINDOW, _COL_W, the
 head/mid DMA split) are HARDWARE-LAYOUT constants, not workload knobs: they
 encode the v5e vreg geometry (128 lanes, 8 sublanes) and measured DMA
@@ -38,11 +47,17 @@ from typing import Tuple
 # tx, ty) and light (SH-9 x RGB, coefficient-major) groups: the one
 # layout its code has (utils/coeffs.DECACodes)
 DECA_FIXED = (6, 3, 27)
+# GaussianAvatars' pose (global | neck | jaw | eyes, axis-angle), FLAME's
+# translation, the camera's world-to-camera [R | t] (3 x 4, row-major)
+# and its focal lengths (fx, fy) in pixels
+AVATAR_FIXED = (15, 3, 12, 2)
+MODELS = ("bfm", "flame", "gavatar")
 
 
 @dataclasses.dataclass(frozen=True)
 class FaceReconConfig:
-    # --- face model: "bfm" or "flame" (DECA's coarse model) ---
+    # --- face model: "bfm", "flame" (DECA's coarse model) or "gavatar"
+    # (GaussianAvatars) ---
     model: str = "bfm"
 
     # --- coefficient layout (SURVEY.md §9, total 257 by default) ---
@@ -59,6 +74,11 @@ class FaceReconConfig:
     uv_size: int = 256     # albedo texels a side after the downsample
     head_hidden: int = 1024  # the regressor head's hidden layer
     n_detail: int = 0      # DECA's detail code (128); 0 = coarse only
+
+    # --- GaussianAvatars (model == "gavatar"; n_shape and n_exp above are
+    # FLAME 2023's 300 and 100 there; the Gaussians are the asset pack's) ---
+    image_height: int = 0  # the render's rows; 0 = image_size
+    image_width: int = 0   # its columns; 0 = image_size
 
     # --- mesh dims (configurable; full BFM09: 53490, cropped: 35709) ---
     n_vertices: int = 35709
@@ -112,9 +132,9 @@ class FaceReconConfig:
     checkpoint_every: int = 5_000
 
     def __post_init__(self):
-        if self.model not in ("bfm", "flame"):
+        if self.model not in MODELS:
             raise ValueError(f"unknown face model {self.model!r}: "
-                             "expected 'bfm' or 'flame'")
+                             f"expected one of {MODELS}")
         if self.n_detail and self.model != "flame":
             raise ValueError("n_detail > 0 needs model='flame' (DECA)")
 
@@ -122,6 +142,8 @@ class FaceReconConfig:
     def coeff_sizes(self) -> Tuple[int, ...]:
         """The code's groups in order: [id | exp | tex | angles | gamma |
         t] for BFM, [shape | tex | exp | pose | cam | light] for FLAME."""
+        if is_gavatar(self):
+            return (self.n_shape, self.n_exp, *AVATAR_FIXED)
         if is_flame(self):
             detail = (self.n_detail,) if self.n_detail else ()
             return (self.n_shape, self.n_tex, self.n_exp, *DECA_FIXED,
@@ -153,11 +175,22 @@ class FaceReconConfig:
     def center(self) -> float:
         return self.image_size / 2.0
 
+    @property
+    def render_hw(self) -> Tuple[int, int]:
+        """(rows, columns) of the avatar's render."""
+        return (self.image_height or self.image_size,
+                self.image_width or self.image_size)
+
 
 def is_flame(cfg) -> bool:
     """Whether cfg is a FLAME (DECA) config; the JAX package's config,
     which the port's tests pass, has no `model` and is a BFM one."""
     return getattr(cfg, "model", "bfm") == "flame"
+
+
+def is_gavatar(cfg) -> bool:
+    """Whether cfg is a GaussianAvatars config."""
+    return getattr(cfg, "model", "bfm") == "gavatar"
 
 
 def default_config(**overrides) -> FaceReconConfig:
@@ -171,6 +204,17 @@ def deca_config(**overrides) -> FaceReconConfig:
     adds the detail model."""
     base = dict(model="flame", n_tex=50, n_exp=50, n_vertices=5023,
                 n_faces=9976, image_size=224, tile_h=4, raster_cols=7)
+    base.update(overrides)
+    return FaceReconConfig(**base)
+
+
+def gavatar_config(**overrides) -> FaceReconConfig:
+    """GaussianAvatars at its published sizes: FLAME 2023's 300 shape and
+    100 expression components on the 5,023-vertex, 9,976-face mesh, and
+    NeRSemble's 3,208 x 2,200 frames at a quarter (802 x 550, rows x
+    columns)."""
+    base = dict(model="gavatar", n_shape=300, n_exp=100, n_vertices=5023,
+                n_faces=9976, image_height=802, image_width=550)
     base.update(overrides)
     return FaceReconConfig(**base)
 

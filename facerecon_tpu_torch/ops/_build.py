@@ -5,7 +5,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 headers, so a build takes seconds). A source may hold more than one
 kernel's C entry (`SOURCES`: the two binning kernels share
 `csrc/binning.cu`, the textured kernel and the detailed image's fetch
-`csrc/raster_texture.cu`, and the detail decoder's two `csrc/upconv.cu`); it builds once for all of them. Libraries go into
+`csrc/raster_texture.cu`, the detail decoder's two `csrc/upconv.cu`, and
+GaussianAvatars' four splatting kernels `csrc/gaussians.cu`); it builds
+once for all of them. Libraries go into
 `_build/` beside the package (listed in .gitignore), named by a hash of
 the source, every header in `csrc/` and the flags, so a checkout builds
 what it needs on its first call and reuses it afterwards, and an edited
@@ -42,11 +44,14 @@ import torch
 KERNELS = ("raster_shade", "raster_select", "select_grad", "raster_pos",
            "ctz_walk", "bin_setup", "bin_windows", "raster_texture",
            "geometry", "records", "uv_detail", "raster_texfetch", "upconv",
-           "outconv")
+           "outconv", "gauss_prep", "gauss_emit", "gauss_ranges",
+           "gauss_blend")
 # the source, csrc/<source>.cu, of each kernel not in a file of its own
 # name
 SOURCES = {"bin_setup": "binning", "bin_windows": "binning",
-           "raster_texfetch": "raster_texture", "outconv": "upconv"}
+           "raster_texfetch": "raster_texture", "outconv": "upconv",
+           "gauss_prep": "gaussians", "gauss_emit": "gaussians",
+           "gauss_ranges": "gaussians", "gauss_blend": "gaussians"}
 # the device function each kernel's C entry launches exactly once a
 # launch (K3's and the geometry's last pass), as a profiler's trace names
 # it
@@ -63,7 +68,11 @@ SYMBOLS = {"raster_shade": "raster_shade_kernel",
            "uv_detail": "uv_detail_kernel",
            "raster_texfetch": "raster_texfetch_kernel",
            "upconv": "upconv_kernel",
-           "outconv": "outconv_kernel"}
+           "outconv": "outconv_kernel",
+           "gauss_prep": "gauss_prep_kernel",
+           "gauss_emit": "gauss_emit_kernel",
+           "gauss_ranges": "gauss_ranges_kernel",
+           "gauss_blend": "gauss_blend_kernel"}
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -32,6 +32,14 @@ its tables and decoder, ops/detail.DeviceDetail) decodes the
 displacement map (models/deca_detail, span fr.decoder), shades the UV
 texture from the detail normals (ops/detail.uv_detail, fr.uv_detail),
 and fetches the detailed image from it (`rasterize.rasterize_texfetch`).
+
+Given a GaussianAvatars config (cfg.model == "gavatar"), a frame's
+AvatarCodes and an ops/gavatar.DeviceAvatar, `render_coeffs` splats the
+avatar instead (`render_avatar`, inference only): FLAME under the full
+pose (fr.flame, a CUDA graph on the card), the Gaussians' preprocess
+(fr.gaussians), the pairs' emit, sort and tile ranges (fr.splat_sort)
+and the blend (fr.splat), into a cfg.render_hw image; its mask is the
+alpha 1 - T.
 """
 
 from __future__ import annotations
@@ -40,10 +48,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from facerecon_tpu_torch.config import FaceReconConfig, is_flame
+from facerecon_tpu_torch.config import (FaceReconConfig, is_flame,
+                                       is_gavatar)
 from facerecon_tpu_torch.models.deca_detail import decoder_input
 from facerecon_tpu_torch.ops import _build
 from facerecon_tpu_torch.ops import flame as flame_ops
+from facerecon_tpu_torch.ops import gavatar as gavatar_ops
 from facerecon_tpu_torch.ops import rasterize
 from facerecon_tpu_torch.ops import sh as sh_ops
 from facerecon_tpu_torch.ops.binning import affine_forms, ndc_to_screen
@@ -373,6 +383,58 @@ def render_flame(codes, flame, cfg: FaceReconConfig,
                      uv_detail_normals=normals_uv, displacement_map=disp)
 
 
+class AvatarGeometry(NamedTuple):
+    """What the avatar's render keeps of its geometry and splats."""
+    verts_world: torch.Tensor   # (B, N, 3) posed FLAME vertices
+    means: torch.Tensor         # (B, G, 3) the Gaussians' world means
+    xy: torch.Tensor            # (B, G, 2) their pixels (0 where culled)
+    radius: torch.Tensor        # (B, G) int32 their radii (0 where culled)
+    pairs: int                  # Gaussian-tile pairs of the microbatch
+
+
+def render_avatar(codes, avatar, cfg: FaceReconConfig,
+                  background=None) -> RenderOut:
+    """GaussianAvatars' render of B frames (AvatarCodes): FLAME (fr.flame;
+    replayed from a CUDA graph on the card, its vertices copied out), the
+    preprocess (fr.gaussians), the prefix sum of the pair counts, its
+    total read to the host once, the emit, the stable sort and the tile
+    ranges (fr.splat_sort), and the blend (fr.splat), over `background`
+    (3 floats; black by default). The RenderOut holds the image, the
+    alpha as its mask, and an AvatarGeometry (with the host's pair count);
+    tri_id and bary are None."""
+    h, w = cfg.render_hw
+    bsz = codes.shape.shape[0]
+    tiles_x, tiles_y = gavatar_ops.tile_grid(h, w)
+    bg = (0.0, 0.0, 0.0) if background is None else background
+    with torch.no_grad():
+        with span("fr.flame"):
+            verts = flame_ops.graphed(
+                "avatar", lambda *c: (gavatar_ops.posed_vertices(
+                    *c, avatar),), avatar, codes.shape, codes.exp,
+                codes.pose, codes.trans)[0]
+            if verts.is_cuda:
+                verts = verts.clone()
+        with span("fr.gaussians"):
+            splats = gavatar_ops.preprocess(
+                verts, gavatar_ops.cameras(codes.view, codes.focal), avatar,
+                h, w)
+        with span("fr.splat_sort"):
+            offsets = torch.cumsum(splats.count.reshape(-1), 0)
+            pairs = int(offsets[-1]) if offsets.numel() else 0
+            keys, ids = gavatar_ops.emit_pairs(splats, offsets, pairs, h, w)
+            skeys, order = gavatar_ops.sort_pairs(keys)
+            ranges, sids = gavatar_ops.tile_ranges(
+                skeys, order, ids, bsz * tiles_x * tiles_y)
+        with span("fr.splat"):
+            image, alpha = gavatar_ops.blend(ranges, sids, splats.rec, h, w,
+                                             bg)
+    geom = AvatarGeometry(verts_world=verts, means=splats.means,
+                          xy=splats.rec[..., :2], radius=splats.radius,
+                          pairs=pairs)
+    return RenderOut(image=image, mask=alpha, tri_id=None, bary=None,
+                     radiance=None, geometry=geom)
+
+
 def render_coeffs(coeffs: Coeffs, assets: DeviceBFM, cfg: FaceReconConfig,
                   background: Optional[torch.Tensor] = None,
                   image_size: Optional[int] = None,
@@ -382,7 +444,15 @@ def render_coeffs(coeffs: Coeffs, assets: DeviceBFM, cfg: FaceReconConfig,
     differentiable training render (K2 forward, K3 backward). A FLAME
     config (with DECA's codes and ops/flame.DeviceFLAME assets) renders
     DECA's coarse model (render_flame), which has no training render
-    yet."""
+    yet; a GaussianAvatars config (AvatarCodes, an ops/gavatar.DeviceAvatar,
+    `background` 3 floats) splats the avatar (render_avatar), inference
+    only too."""
+    if is_gavatar(cfg):
+        if not inference:
+            raise ValueError("render_coeffs: GaussianAvatars renders for "
+                             "inference only (inference=True)")
+        with span("fr.render"):
+            return render_avatar(coeffs, assets, cfg, background=background)
     if is_flame(cfg):
         if not inference:
             raise ValueError(

@@ -43,6 +43,10 @@ them; `main` prints it before its last line. The port's spans:
   fr.coeff_grad (a mark) the coefficients' gradient is complete: the
                 render's backward ends and the CNN's begins
   fr.optimizer  the train step's Adam step and schedule step
+  fr.flame, fr.gaussians, fr.splat_sort, fr.splat
+                the avatar's render (ops/render.render_avatar): FLAME,
+                the Gaussians' preprocess, the pairs' emit, sort and
+                ranges, the blend
 """
 
 from __future__ import annotations

@@ -71,7 +71,16 @@ bar against the native oracle in both row orders; evaluate on the card
 meets the contract; the infer and track drivers launch exactly their
 kernels; gather_probe's forms equal the CPU's; dryrun_multichip(1) runs
 over NCCL; a checkpoint written from the card restores bit for bit into
-a trainer on the CPU and on the card.
+a trainer on the CPU and on the card. GaussianAvatars' four kernels
+(csrc/gaussians.cu through ops/gavatar) at the cell's sizes (100,000
+Gaussians, 802 x 550) on the cell's frames, on frames with Gaussians
+behind the near plane, off screen and none in view: the emit, the tile
+ranges and the blend bit for bit their plain versions, the preprocess
+within 2 ulp of them (its exp, sqrt and division are the card's on
+both sides; the kernel keeps the plain version's order); the avatar's
+render launches each of the four once and no other kernel of the port;
+the wrappers refuse what the kernels do not take; and the cell at batch
+8 is correct under its own limits.
 """
 
 import dataclasses
@@ -1588,3 +1597,153 @@ def test_contract_path_at_224px_meets_the_native_oracle(card, full_mesh,
             z_exact = max(z_exact, float((np.abs(zt - exact) / exact).max()))
     assert cov > 0 and mism <= 5e-5 * cov and bad_depth == 0
     assert bary_err <= 5e-5 and z_rel <= 1e-4 and z_exact <= 2e-6
+
+
+# --- GaussianAvatars' splatting kernels (csrc/gaussians.cu) ---
+
+_GAUSS = ("gauss_prep", "gauss_emit", "gauss_ranges", "gauss_blend")
+
+
+@pytest.fixture(scope="module")
+def gavatar_kind():
+    """The cell's kind set up on the card: its program config, asset pack
+    and 256 frames' codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from perfbench import spec
+    from perfbench.kinds import gavatar_render as GR
+    kind = GR.Kind(spec.cell("gavatar802.b256"), 2 ** 31 + 41,
+                   torch.device("cuda"))
+    kind.setup()
+    return kind
+
+
+def _close_ulp(got, ref, ulps=2):
+    """Equal, or within `ulps` float32 ulps of the larger magnitude."""
+    if got.dtype != torch.float32:
+        return torch.equal(got, ref)
+    tol = ulps * torch.finfo(torch.float32).eps * torch.maximum(
+        got.abs(), ref.abs())
+    return bool(((got - ref).abs() <= tol).all())
+
+
+def _hold_splat(kind, codes):
+    """The four kernels on `codes` against their plain versions run on the
+    card, each launched once: the preprocess within 2 ulp (each field),
+    the rest bit for bit. Returns the pair count."""
+    from facerecon_tpu_torch.ops import gavatar as G
+    cfg, av = kind.cfg, kind.avatar
+    h, w = cfg.render_hw
+    c = split_coeff(codes, cfg)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        verts = G.posed_vertices(c.shape, c.exp, c.pose, c.trans, av)
+        cams = G.cameras(c.view, c.focal)
+        sp = G.preprocess(verts, cams, av, h, w)
+        ref = G.preprocess_reference(verts, cams, av, h, w)
+        for name in sp._fields:
+            assert _close_ulp(getattr(sp, name), getattr(ref, name)), name
+        off = torch.cumsum(sp.count.reshape(-1), 0)
+        n = int(off[-1])
+        keys, ids = G.emit_pairs(sp, off, n, h, w)
+        rk, ri = G.emit_pairs_reference(sp, off, n, h, w)
+        assert torch.equal(keys, rk) and torch.equal(ids, ri)
+        skeys, order = G.sort_pairs(keys)
+        tx, ty = G.tile_grid(h, w)
+        n_t = codes.shape[0] * tx * ty
+        ranges, sids = G.tile_ranges(skeys, order, ids, n_t)
+        rr, rs = G.tile_ranges_reference(skeys, order, ids, n_t)
+        assert torch.equal(ranges, rr) and torch.equal(sids, rs)
+        image, alpha = G.blend(ranges, sids, sp.rec, h, w, kind.background)
+        ri, ra = G.blend_reference(ranges, sids, sp.rec, h, w,
+                                   kind.background)
+        assert torch.equal(image, ri) and torch.equal(alpha, ra)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: int(k in _GAUSS and (n > 0 or k == "gauss_prep"
+                                                or k == "gauss_blend"))
+                        for k in _build.KERNELS}
+    return n
+
+
+def test_gaussian_kernels_equal_plain_at_the_cell_size(card, gavatar_kind):
+    """The cell's first 4 frames: the kernels against their plain
+    versions (_hold_splat), with pairs to blend."""
+    n = _hold_splat(gavatar_kind, gavatar_kind.codes[:4])
+    assert n > 4 * 100_000
+
+
+def test_gaussian_kernels_on_culled_and_empty_frames(card, gavatar_kind):
+    """Frame 0's camera 0.25 m from the head (Gaussians behind the near
+    plane and off screen), frame 1's 1 m in front of it looking away
+    (every Gaussian behind the camera), frame 2 as drawn: the kernels still equal their plain
+    versions."""
+    codes = gavatar_kind.codes[:3].clone()
+    view = codes[:, 418:430].view(3, 3, 4)
+    view[0, 2, 3] = 0.25
+    view[1] = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -1]],
+                           device=codes.device)
+    _hold_splat(gavatar_kind, codes)
+
+
+def test_avatar_render_launches_each_kernel_once(card, gavatar_kind):
+    """render_coeffs on 8 frames: each of the four kernels once, no other
+    kernel of the port, finite image and alpha in [0, 1]."""
+    from facerecon_tpu_torch.ops.render import render_coeffs
+    kind = gavatar_kind
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        out = render_coeffs(split_coeff(kind.codes[:8], kind.cfg),
+                            kind.avatar, kind.cfg, background=kind.background,
+                            inference=True)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched == {k: int(k in _GAUSS) for k in _build.KERNELS}
+    assert bool(torch.isfinite(out.image).all())
+    assert 0.0 <= float(out.mask.min()) and float(out.mask.max()) <= 1.0
+
+
+@pytest.mark.parametrize("case", ["cams_f64", "verts_cpu", "rec_strided",
+                                  "ranges_i64"])
+def test_gaussian_wrappers_reject_what_the_kernels_do_not_take(
+        card, gavatar_kind, case):
+    from facerecon_tpu_torch.ops import gavatar as G
+    kind = gavatar_kind
+    h, w = kind.cfg.render_hw
+    c = split_coeff(kind.codes[:2], kind.cfg)
+    with torch.no_grad():
+        verts = G.posed_vertices(c.shape, c.exp, c.pose, c.trans,
+                                 kind.avatar)
+        cams = G.cameras(c.view, c.focal)
+        with pytest.raises(ValueError):
+            if case == "cams_f64":
+                G.preprocess(verts, cams.double(), kind.avatar, h, w)
+            elif case == "verts_cpu":
+                G.preprocess(verts.cpu(), cams, kind.avatar, h, w)
+            else:
+                sp = G.preprocess(verts, cams, kind.avatar, h, w)
+                tx, ty = G.tile_grid(h, w)
+                ranges = torch.zeros((2 * tx * ty, 2), dtype=torch.int32,
+                                     device=card)
+                sids = torch.zeros(0, dtype=torch.int32, device=card)
+                if case == "rec_strided":
+                    rec = torch.zeros((2, sp.rec.shape[1], 18),
+                                      device=card)[..., ::2]
+                    G.blend(ranges, sids, rec, h, w, kind.background)
+                else:
+                    G.blend(ranges.long(), sids, sp.rec, h, w,
+                            kind.background)
+
+
+def test_the_avatar_cell_is_correct_at_batch_8(card):
+    """A short run of gavatar802.b256 at batch 8 in microbatches of 4
+    through the four kernels: correct under the cell's own limits."""
+    import copy
+    from perfbench import run, spec
+    cell = copy.deepcopy(spec.cell("gavatar802.b256"))
+    cell["traffic"].update(batch=8, microbatch=4)
+    before = dict(_build.LAUNCHES)
+    r = run.run_cell(cell, 2 ** 31 + 83, 0.5, False, card)
+    assert r["correct"], r["compared"]
+    for kernel in _GAUSS:
+        assert _build.LAUNCHES[kernel] > before[kernel], kernel

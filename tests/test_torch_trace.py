@@ -214,7 +214,9 @@ def test_summarize_reads_kernels_copies_and_the_ports_kernels():
                             "ctz_walk": 0, "bin_setup": 0,
                             "bin_windows": 0, "raster_texture": 0,
                             "geometry": 0, "records": 0, "uv_detail": 0,
-                            "raster_texfetch": 0, "upconv": 0, "outconv": 0}
+                            "raster_texfetch": 0, "upconv": 0, "outconv": 0,
+                            "gauss_prep": 0, "gauss_emit": 0,
+                            "gauss_ranges": 0, "gauss_blend": 0}
 
 
 def test_summarize_reads_the_ports_stages():
